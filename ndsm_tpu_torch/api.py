@@ -1,0 +1,79 @@
+"""User-facing API (port of ``ndsm_tpu/api.py``): the reference's
+``ndsm.vector_potential`` signature (reference ndsm.py:66-210) and its
+``(ierr, A, B)`` return with numpy arrays, plus one keyword-only
+``device`` argument.
+
+``device="cuda"`` (the default) runs on the CUDA device and raises when
+there is none; ``device="cpu"`` runs the same pipeline on the CPU with the
+kernels' plain PyTorch versions.  Nothing chooses the device for you.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+
+from .options import Options
+from .potential.vector_potential import compute_vector_potential
+
+__all__ = ["vector_potential"]
+
+
+def vector_potential(
+    x,
+    y,
+    z,
+    b,
+    niterex_max: int = 10000,
+    ncycles_max: int = 1024,
+    ex_tol: float = 1e-13,
+    vc_tol: float = 1e-10,
+    ms: int = 5,
+    mean: bool = False,
+    libname: Optional[str] = None,  # accepted for reference compatibility
+    libpath: Optional[str] = None,  # accepted for reference compatibility
+    debug: bool = False,
+    *,
+    precision: str = "auto",
+    options: Optional[Options] = None,
+    full_output: bool = False,
+    dist=None,
+    device: str = "cuda",
+):
+    """Compute the potential magnetic field and Coulomb-gauge vector
+    potential from boundary Bn (see ``ndsm_tpu.api.vector_potential``).
+
+    Returns (ierr, A, B) with A, B numpy arrays of shape (3, nz, ny, nx)
+    (float64 unless ``options.output_dtype`` says float32), plus the
+    diagnostics record when ``full_output``; its ``phases`` gain a
+    "fetch" entry, the copy of A and B to the host.
+    """
+    if dist is not None:
+        raise NotImplementedError(
+            "dist= (distributed solves) is not ported to ndsm_tpu_torch yet "
+            "(ROADMAP.md Queue A: parallel/)"
+        )
+    if options is None:
+        options = Options(
+            ms=ms,
+            ncycles_max=ncycles_max,
+            niterex_max=niterex_max,
+            ex_tol=ex_tol,
+            vc_tol=vc_tol,
+            mean=mean,
+            debug=debug,
+            precision=precision,
+        )
+    ierr, A, B, info = compute_vector_potential(
+        (x, y, z), np.asarray(b), options, device=device
+    )
+    t0 = time.perf_counter()
+    A = A.cpu().numpy()
+    B = B.cpu().numpy()
+    if info.phases is not None:
+        info.phases["fetch"] = time.perf_counter() - t0
+    if full_output:
+        return ierr, A, B, info
+    return ierr, A, B

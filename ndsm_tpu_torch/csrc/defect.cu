@@ -1,0 +1,93 @@
+// Mixed-precision outer defect, float64: the Hopper kernel behind ops/df.py.
+//
+// Replaces ndsm_tpu/ops/pallas_df.py: df_residual_3d (with its zero_rhs
+// and update variants).  On the TPU, f64 was software-emulated, so that
+// kernel carried u as an f32 (hi, lo) pair with compensated arithmetic.
+// Hopper has native f64, so this kernel computes in f64 directly:
+//
+//   v = u (+ (double)e)                     update variant: v is written out
+//   r = rhs - L[v]                          rhs == nullptr: the zero-rhs form
+//   r32 = (float)r, zero on Dirichlet faces
+//   block_max[b] = max |r32| over block b   reduced by the wrapper
+//
+// L[v] is ndsm_tpu/ops/stencils.py's poisson_residual order in f64 with
+// w = 1/(dq*dq) in f64: per axis ((lo - 2v) + hi) * w, summed z, y, x.
+//
+// The update writes v to a separate buffer (u_out): neighbours are read as
+// u[q] + e[q] from the unmodified u, so no thread can see a neighbour that
+// another thread already updated.
+//
+// What bounds it on the H100: device-memory bandwidth -- 8 (u) + 8 (rhs)
+// + 4 (r32) bytes per point, plus 4 (e) + 8 (u_out) for the update; the
+// zero-rhs update form the vector-potential solves use moves 24 B/point.
+// f64 arithmetic (~190 FLOP/point in the TPU's pair form, ~20 here) is far
+// below the H100's f64 rate.  The design streams each array once; the
+// neighbour reads hit L1/L2.
+
+#include "stencil.cuh"
+
+namespace ndsm {
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+__global__ void defect_f64(const double* __restrict__ u,
+                           const float* __restrict__ e,
+                           double* __restrict__ u_out,
+                           const double* __restrict__ rhs,
+                           float* __restrict__ r32,
+                           float* __restrict__ block_max, int nz, int ny,
+                           int nx, int dmask, double wz, double wy, double wx) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float a = 0.0f;
+  if (p < (long long)nz * ny * nx) {
+    const int x = (int)(p % nx);
+    const long long row = p / nx;
+    const int y = (int)(row % ny);
+    const int z = (int)(row / ny);
+    auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
+    const double c = v(p);
+    if (u_out) u_out[p] = c;
+    float rv = 0.0f;
+    if (!on_dirichlet_face(z, y, x, nz, ny, nx, dmask)) {
+      const Neighbours n = neighbours(z, y, x, nz, ny, nx);
+      const double c2 = 2.0 * c;
+      double t = ((v(n.zl) - c2) + v(n.zh)) * wz;
+      t = t + ((v(n.yl) - c2) + v(n.yh)) * wy;
+      t = t + ((v(n.xl) - c2) + v(n.xh)) * wx;
+      rv = (float)((rhs ? rhs[p] : 0.0) - t);
+    }
+    r32[p] = rv;
+    a = fabsf(rv);
+  }
+  // Block max of |r32|, NaN-propagating like torch.max.
+  for (int off = 16; off > 0; off >>= 1)
+    a = nan_max(a, __shfl_down_sync(0xffffffffu, a, off));
+  __shared__ float warp_max[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = warp_max[0];
+    for (int w = 1; w < kThreads / 32; ++w) m = nan_max(m, warp_max[w]);
+    block_max[blockIdx.x] = m;
+  }
+}
+
+}  // namespace ndsm
+
+extern "C" int ndsm_defect_blocks(int nz, int ny, int nx) {
+  return (int)ndsm::blocks_for((long long)nz * ny * nx);
+}
+
+extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
+                               const void* rhs, void* r32, void* block_max,
+                               int nz, int ny, int nx, int dmask, double wz,
+                               double wy, double wx, void* stream) {
+  const long long n = (long long)nz * ny * nx;
+  ndsm::defect_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
+      (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx);
+  return (int)cudaGetLastError();
+}

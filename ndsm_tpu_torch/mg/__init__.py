@@ -1,0 +1,3 @@
+from .poisson import PoissonBVP, get_poisson_bvp
+
+__all__ = ["PoissonBVP", "get_poisson_bvp"]

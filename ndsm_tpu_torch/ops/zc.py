@@ -1,0 +1,231 @@
+"""Red-black smoother kernels for float32 3D levels (port of
+``ndsm_tpu/ops/pallas_zc.py``: ``zc_smooth_3d``, ``zc_smooth_residual_3d``,
+``zc_smooth_cor_3d``).
+
+Each wrapper takes the level's tensors and its static configuration (dq,
+bcs, number of sweeps):
+
+  * on a CUDA tensor it launches the hand-written kernels of
+    ``csrc/zc_smooth.cu`` (built at first use) and adds one to its
+    ``launches`` count, or raises;
+  * on a CPU tensor it runs its plain PyTorch version below, built from
+    ops/stencils.py.
+
+The plain versions are the oracles the kernels are held to on the card
+(bitwise: same expression order, no FMA contraction) and what the CPU tests
+compare with the JAX kernels.  Nothing on the main path calls a plain
+version for a CUDA tensor; ``plain_cuda_calls`` counts any that does.
+
+Semantics (the JAX builders'): ``nsweeps`` calls of ``rb_sweep`` on a
+3D problem that is not all-Neumann (the per-sweep mean of an all-Neumann
+problem is ``zc_smooth_mean_3d``, not ported yet).  The wrappers are
+functional: inputs are never modified.
+
+Kernel design (see the source note in csrc/zc_smooth.cu): one launch per
+half-sweep, 2*nsweeps launches per call.  The first half-sweep runs out of
+place (into a new tensor, adding ``cor`` on load for the correction form),
+the rest in place on that tensor; the residual form adds one residual
+launch.  Unlike the TPU kernels there is no shape gate, no pass width and
+no padded storage: every 3D shape with extents >= 2 is taken.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import stencils
+
+__all__ = [
+    "zc_smooth_3d",
+    "zc_smooth_residual_3d",
+    "zc_smooth_cor_3d",
+    "zc_smooth_3d_plain",
+    "zc_smooth_residual_3d_plain",
+    "zc_smooth_cor_3d_plain",
+    "dirichlet_mask",
+]
+
+
+def dirichlet_mask(bcs) -> int:
+    """6-bit face mask of csrc/stencil.cuh: bit 2*ax lower, 2*ax+1 upper."""
+    m = 0
+    for ax, (lo, hi) in enumerate(bcs):
+        if lo == "D":
+            m |= 1 << (2 * ax)
+        if hi == "D":
+            m |= 1 << (2 * ax + 1)
+    return m
+
+
+def check_level(name: str, tensors, dtype: torch.dtype, shape=None) -> None:
+    """Raise unless every tensor is a contiguous 3D ``dtype`` tensor of one
+    shape (``shape`` if given; every extent >= 2) on one device."""
+    t0 = tensors[0]
+    shape = tuple(t0.shape) if shape is None else tuple(shape)
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected torch.Tensor, got {type(t).__name__}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or len(shape) != 3 or min(shape) < 2:
+            raise ValueError(
+                f"{name}: expected one 3D shape with extents >= 2, got "
+                f"{tuple(t.shape)} (expected {shape})"
+            )
+        if t.device != t0.device:
+            raise ValueError(f"{name}: tensors on {t0.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t0.device}")
+
+
+def _check_config(name: str, dq, bcs, nsweeps: int):
+    bcs = stencils.validate_bcs(bcs, 3)
+    if stencils.is_all_neumann(bcs):
+        raise ValueError(f"{name}: all-Neumann BCs need the per-sweep mean")
+    if int(nsweeps) < 1:
+        raise ValueError(f"{name}: nsweeps must be >= 1, got {nsweeps}")
+    if len(dq) != 3:
+        raise ValueError(f"{name}: dq must have 3 entries")
+    return bcs
+
+
+def _count_plain(fn, u: torch.Tensor) -> None:
+    if u.device.type == "cuda":
+        fn.plain_cuda_calls += 1
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch versions (oracles; CPU path)
+# ----------------------------------------------------------------------
+
+
+def zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` calls of ``stencils.rb_sweep``."""
+    _count_plain(zc_smooth_3d_plain, u)
+    for _ in range(int(nsweeps)):
+        u = stencils.rb_sweep(u, rhs, dq, bcs)
+    return u
+
+
+def zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps: int):
+    """(u', r): ``nsweeps`` sweeps, then ``poisson_residual`` of u'."""
+    _count_plain(zc_smooth_residual_3d_plain, u)
+    for _ in range(int(nsweeps)):
+        u = stencils.rb_sweep(u, rhs, dq, bcs)
+    return u, stencils.poisson_residual(u, rhs, dq, bcs)
+
+
+def zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` sweeps on ``u + cor``."""
+    _count_plain(zc_smooth_cor_3d_plain, u)
+    u = u + cor
+    for _ in range(int(nsweeps)):
+        u = stencils.rb_sweep(u, rhs, dq, bcs)
+    return u
+
+
+for _f in (zc_smooth_3d_plain, zc_smooth_residual_3d_plain, zc_smooth_cor_3d_plain):
+    _f.plain_cuda_calls = 0
+
+
+# ----------------------------------------------------------------------
+# CUDA launches
+# ----------------------------------------------------------------------
+
+
+def _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps: int, what: str) -> torch.Tensor:
+    """2*nsweeps half-sweep launches; the first out of place into a new
+    tensor (reading u + cor when cor is given), the rest in place on it."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nz, ny, nx = (int(s) for s in u.shape)
+    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
+    dmask = dirichlet_mask(bcs)
+    red = stencils.first_color_parity(bcs)
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        rc = lib.ndsm_rb_half_oop_f32(
+            u.data_ptr(), None if cor is None else cor.data_ptr(),
+            rhs.data_ptr(), out.data_ptr(), nz, ny, nx, red, dmask,
+            wz, wy, wx, w0, stream,
+        )
+        cuda_build.check(rc, what)
+        for k in range(1, 2 * int(nsweeps)):
+            color = red if k % 2 == 0 else 1 - red
+            rc = lib.ndsm_rb_half_inplace_f32(
+                out.data_ptr(), rhs.data_ptr(), nz, ny, nx, color, dmask,
+                wz, wy, wx, w0, stream,
+            )
+            cuda_build.check(rc, what)
+    return out
+
+
+def _residual_cuda(u, rhs, dq, bcs, what: str) -> torch.Tensor:
+    from ..utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nz, ny, nx = (int(s) for s in u.shape)
+    (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float32)
+    r = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        rc = lib.ndsm_residual_f32(
+            u.data_ptr(), rhs.data_ptr(), r.data_ptr(), nz, ny, nx,
+            dirichlet_mask(bcs), wz, wy, wx, stream,
+        )
+        cuda_build.check(rc, what)
+    return r
+
+
+# ----------------------------------------------------------------------
+# Wrappers
+# ----------------------------------------------------------------------
+
+
+def zc_smooth_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` red-black sweeps of ``laplace(u) = rhs`` (float32, 3D).
+    Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_3d."""
+    check_level("zc_smooth_3d", (u, rhs), torch.float32)
+    bcs = _check_config("zc_smooth_3d", dq, bcs, nsweeps)
+    if u.device.type == "cpu":
+        return zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps)
+    out = _sweeps_cuda(u, None, rhs, dq, bcs, nsweeps, "zc_smooth_3d")
+    zc_smooth_3d.launches += 1
+    return out
+
+
+def zc_smooth_residual_3d(u, rhs, dq, bcs, nsweeps: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u', r): ``nsweeps`` sweeps, then the residual of the swept state.
+    Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_residual_3d."""
+    check_level("zc_smooth_residual_3d", (u, rhs), torch.float32)
+    bcs = _check_config("zc_smooth_residual_3d", dq, bcs, nsweeps)
+    if u.device.type == "cpu":
+        return zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps)
+    out = _sweeps_cuda(u, None, rhs, dq, bcs, nsweeps, "zc_smooth_residual_3d")
+    r = _residual_cuda(out, rhs, dq, bcs, "zc_smooth_residual_3d")
+    zc_smooth_residual_3d.launches += 1
+    return out, r
+
+
+def zc_smooth_cor_3d(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` sweeps on ``u + cor`` (the V-cycle ascent's
+    correct-then-relax).  Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_cor_3d."""
+    check_level("zc_smooth_cor_3d", (u, cor, rhs), torch.float32)
+    bcs = _check_config("zc_smooth_cor_3d", dq, bcs, nsweeps)
+    if u.device.type == "cpu":
+        return zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, nsweeps)
+    out = _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps, "zc_smooth_cor_3d")
+    zc_smooth_cor_3d.launches += 1
+    return out
+
+
+for _f in (zc_smooth_3d, zc_smooth_residual_3d, zc_smooth_cor_3d):
+    _f.launches = 0
+del _f

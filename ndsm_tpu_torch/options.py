@@ -1,0 +1,136 @@
+"""Typed options and result records (port of ``ndsm_tpu/options.py``).
+
+Same fields and the same defaults as the JAX package, so one
+configuration can drive both (``convert.options_from_reference``).  Two
+things differ:
+
+  * ``resolve_precision`` keys on a torch device instead of the JAX
+    platform: "auto" is "mixed" on a CUDA device and "fp64" on the CPU.
+  * Fields whose feature the port does not have yet raise
+    ``NotImplementedError`` at construction when set to a non-default
+    value, naming the ROADMAP.md item that will bring them.  The port
+    never accepts an option it would silently ignore.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+# Error codes (reference: fortran/ndsm_poisson.f90:46-47)
+IERR_SUCCESS = 0  #: solve converged within ncycles_max
+IERR_COVFAIL = 1  #: V-cycle iteration hit ncycles_max without du < vc_tol
+#: invalid mesh (< 2 points along an axis, or non-uniform spacing);
+#: returned by vector_potential with A = 0 and B = the input b.
+IERR_BADMESH = 2
+
+#: Non-default values that the port rejects, with the ROADMAP.md item
+#: that ports the feature.
+_NOT_PORTED = {
+    "per_face": (False, "Queue A: per_face"),
+    "batch_components": (("auto", "off"), "Queue A5 / B5: mg/batched MultiBCSolver"),
+    "host_curl": (False, "Queue A: host_curl is a TPU-tunnel download pipeline"),
+    "fetch_encoding": ("f64", "Queue A: fetch_encoding belongs to the host-curl pipeline"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """Solver options with the reference defaults (reference: ndsm.py:66).
+
+    See ``ndsm_tpu.options.Options`` for the meaning of every field.
+    Port-specific notes:
+
+      use_pallas: kept for configuration parity.  The port routes by
+        device, not by this flag: on a CUDA device every float32 3D
+        level smooths through the hand-written CUDA kernels, on the CPU
+        through their plain PyTorch versions.  "auto" and "on" are
+        accepted; "off" and "interpret" raise, because the port has no
+        switch that turns its kernels off on the card.
+      mixed_defect: "auto" and "df32" run the outer defect in the native
+        float64 CUDA kernel (ops/df.py; the f32 pair of the TPU kernel
+        existed only because f64 was emulated there); "f64" runs the
+        scaled plain-torch defect group of ``PoissonBVP._mixed_group``.
+      smoother: accepted for parity; the port has one formulation.
+    """
+
+    ms: int = 5
+    ncycles_max: int = 1024
+    niterex_max: int = 10000
+    use_pallas: str = "auto"
+    mixed_inner_max: int = 6
+    mixed_defect: str = "auto"
+    coarse_solver: str = "auto"
+    smoother: str = "auto"
+    batch_components: str = "auto"
+    output_dtype: str = "float64"
+    fetch_encoding: str = "f64"
+    ex_tol: float = 1e-13
+    vc_tol: float = 1e-10
+    mean: bool = False
+    debug: bool = False
+    precision: str = "auto"
+    flux_correction_order: int = 0
+    host_curl: bool = False
+    per_face: bool = False
+    honor_ms_for_az: bool = True
+    reference_flux_quirk: bool = False
+
+    def __post_init__(self):
+        for name, (ok, item) in _NOT_PORTED.items():
+            val = getattr(self, name)
+            allowed = ok if isinstance(ok, tuple) else (ok,)
+            if val not in allowed:
+                raise NotImplementedError(
+                    f"Options.{name}={val!r} is not ported to ndsm_tpu_torch "
+                    f"yet (ROADMAP.md {item})"
+                )
+        if self.use_pallas not in ("auto", "on"):
+            raise ValueError(
+                f"use_pallas={self.use_pallas!r}: the port has no switch that "
+                "turns its CUDA kernels off ('auto' or 'on' only)"
+            )
+        if self.mixed_defect not in ("auto", "f64", "df32"):
+            raise ValueError(f"unknown mixed_defect {self.mixed_defect!r}")
+        if self.output_dtype not in ("float64", "float32"):
+            raise ValueError(f"unknown output_dtype {self.output_dtype!r}")
+
+    @property
+    def du_max(self) -> bool:
+        """True when the max-metric is in use (reference IOPT_DUMAX)."""
+        return not self.mean
+
+    def resolve_precision(self, device=None) -> str:
+        """The precision mode: the explicit one, else "mixed" on a CUDA
+        device and "fp64" on the CPU (``device`` is a ``torch.device`` or
+        a string; None means the CPU)."""
+        if self.precision != "auto":
+            return self.precision
+        kind = "cpu" if device is None else str(device).split(":")[0]
+        return "fp64" if kind == "cpu" else "mixed"
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    """Per-solve diagnostics (same fields as ``ndsm_tpu.options.SolveInfo``)."""
+
+    ierr: int = IERR_SUCCESS
+    du_last: float = 0.0
+    cycles: int = 0
+    name: str = ""
+    wall_time: float = 0.0
+    coarse_noconv: bool = False
+    batch_size: int = 1
+    du_history: Optional[Tuple[float, ...]] = None
+
+
+@dataclasses.dataclass
+class VectorPotentialInfo:
+    """Aggregate diagnostics for a full vector-potential solve."""
+
+    ierr: int = IERR_SUCCESS
+    chi: Tuple[SolveInfo, ...] = ()
+    components: Tuple[SolveInfo, ...] = ()
+    wall_time: float = 0.0
+    #: per-phase wall seconds (keys: faces, chi, solve3d, post).
+    phases: Optional[dict] = None

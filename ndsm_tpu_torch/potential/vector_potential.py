@@ -1,0 +1,308 @@
+"""3D Coulomb-gauge vector-potential pipeline on torch tensors (port of
+``ndsm_tpu/potential/vector_potential.py``).
+
+Given the normal component of B on the six faces of a box, computes the
+current-free field B and a vector potential A with ``B = curl(A)``,
+``div(A) = 0`` (Yang, Wheatland & Gilchrist 2020; reference
+compute_vector_potential, fortran/ndsm_vector_potential.f90:130-497):
+
+  1. Bn on the six faces and their trapezoid fluxes (``_phase_pre``);
+  2. six flux-balanced all-Neumann 2D solves for chi, lane-batched per
+     face hierarchy (``PoissonBVP.solve_batch``);
+  3. tangential boundary data At = -grad(chi) x n (``_phase_at_u0``);
+  4. three 3D mixed-BC solves, one per component, run one after the
+     other (the JAX package's ``batch_components="off"`` path, whose
+     per-component iterates equal its batched path's);
+  5. the analytic flux-balance correction and B = curl(A) on the device
+     (``_phase_post``).
+
+Everything after the face extraction stays on the device; the API copies
+A and B to the host at the end.  Not ported yet (ROADMAP.md Queue A):
+the per-face superposition, the lane-batched component solver
+(mg/batched), the host-curl download pipeline, and distributed runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..grids import GridHierarchy, mesh_uniformity_error
+from ..mg.poisson import get_poisson_bvp
+from ..ops.deriv import curl
+from ..ops.reduce import trapz_2d
+from ..options import IERR_BADMESH, Options, VectorPotentialInfo
+from ..utils.device import resolve_device
+from ..utils.msgs import debug_msg
+from . import faces as F
+
+__all__ = ["compute_vector_potential"]
+
+_SUB = "compute_vector_potential"
+
+_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def _dbg(options: Options, msg: str) -> None:
+    if options.debug:
+        debug_msg(_SUB, msg)
+
+
+def _central_diff_zero_edges(c: torch.Tensor, h: float, axis: int) -> torch.Tensor:
+    """Central difference along ``axis``, zero on the first and last layer
+    (reference compute_At_bcs, ndsm_vector_potential.f90:1006-1017)."""
+    npdt = np.float32 if c.dtype == torch.float32 else np.float64
+    inv2h = float(npdt(0.5 / h))
+    n = c.shape[axis]
+    interior = (c.narrow(axis, 2, n - 2) - c.narrow(axis, 0, n - 2)) * inv2h
+    z = torch.zeros_like(c.narrow(axis, 0, 1))
+    return torch.cat([z, interior, z], dim=axis)
+
+
+def _phase_pre(bn, spacings, areas):
+    """Fluxes and flux-balanced chi right-hand sides for all six faces."""
+    phi = torch.stack(
+        [trapz_2d(bn[f], spacings[f][0], spacings[f][1]) for f in range(6)]
+    )
+    rhs = tuple(bn[f] - phi[f] / areas[f] for f in range(6))
+    return rhs, phi
+
+
+def _phase_at_u0(chi, hs, signs, vol_shape, dtype, device):
+    """At = -grad(chi) x n on every face, scattered into the three
+    component initial guesses (their Dirichlet data)."""
+    At1, At2 = [], []
+    for f in range(6):
+        h1, h2 = hs[f]
+        dchi_d1 = _central_diff_zero_edges(chi[f], h1, axis=1)
+        dchi_d2 = _central_diff_zero_edges(chi[f], h2, axis=0)
+        s1, s2 = signs[f]
+        At1.append(s1 * dchi_d2)
+        At2.append(s2 * dchi_d1)
+    u0s = []
+    for comp in range(3):
+        u0 = torch.zeros(vol_shape, dtype=dtype, device=device)
+        for f in range(6):
+            if F.FACE_COMP[f] == comp:
+                continue
+            slot = F.face_at_component(f, comp)
+            u0[F.face_volume_index(f, vol_shape)] = At1[f] if slot == 1 else At2[f]
+        u0s.append(u0)
+    return u0s
+
+
+def _add_flux_balance_fields(mesh_xyz, Lq, phi, B, A):
+    """Analytic flux-balance fields (reference add_flux_balance_fields,
+    ndsm_vector_potential.f90:880-950); ``B=None`` skips the field part."""
+    dtype = A.dtype
+    x = mesh_xyz[0].to(dtype)[None, None, :]
+    y = mesh_xyz[1].to(dtype)[None, :, None]
+    z = mesh_xyz[2].to(dtype)[:, None, None]
+    V = float(np.prod(np.asarray(Lq)))
+    g = torch.stack(
+        [(phi[1] - phi[0]) / V, (phi[3] - phi[2]) / V, (phi[5] - phi[4]) / V]
+    ).to(dtype)
+    bc = None
+    if B is not None:
+        bc = torch.stack(
+            [
+                g[0] * x + phi[0] * Lq[0] / V + 0.0 * (y + z),
+                g[1] * y + phi[2] * Lq[1] / V + 0.0 * (x + z),
+                g[2] * z + phi[4] * Lq[2] / V + 0.0 * (x + y),
+            ]
+        )
+    # A1_l + A2_l + A3_l = [(g2-g3) y z, (g3-g1) x z, (g1-g2) x y] (:932-934)
+    lin = torch.stack(
+        [
+            (g[1] - g[2]) * y * z + 0.0 * x,
+            (g[2] - g[0]) * x * z + 0.0 * y,
+            (g[0] - g[1]) * x * y + 0.0 * z,
+        ]
+    )
+    # Constant-term potential (:937-939)
+    Ac = torch.stack(
+        [
+            -phi[4] * Lq[2] * y / V + 0.0 * (x + z),
+            -phi[0] * Lq[0] * z / V + 0.0 * (x + y),
+            -phi[2] * Lq[1] * x / V + 0.0 * (y + z),
+        ]
+    )
+    B_out = None if B is None else B + bc
+    return B_out, A + Ac + lin / 3.0
+
+
+def _phase_post(A, phi, xs, ys, zs, Lq, dq, order, out_dtype):
+    """Flux-balance correction and curl, in the selected order (:453-477)."""
+    mesh_xyz = (xs, ys, zs)
+    if order == 1:
+        B = curl(A, dq)
+        B, A = _add_flux_balance_fields(mesh_xyz, Lq, phi, B, A)
+    else:
+        _, A = _add_flux_balance_fields(mesh_xyz, Lq, phi, None, A)
+        B = curl(A, dq)
+    return A.to(out_dtype), B.to(out_dtype)
+
+
+def compute_vector_potential(
+    meshes: Sequence[np.ndarray],
+    b,
+    options: Options = Options(),
+    device="cuda",
+) -> Tuple[int, torch.Tensor, torch.Tensor, VectorPotentialInfo]:
+    """Compute (ierr, A, B, info) from boundary Bn on ``device``.
+
+    Args:
+      meshes: (x, y, z) 1-D coordinate vectors (uniform spacing each).
+      b: (3, nz, ny, nx) array; only the normal components on the six
+        boundary faces are read (quirk Q12) — B is recomputed in full.
+      options: solver options.
+      device: "cuda" (raises without a CUDA device) or "cpu".
+
+    Returns:
+      ierr (max over all nine sub-solves), A and B as (3, nz, ny, nx)
+      tensors on ``device``, and the per-solve diagnostics.
+    """
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    phases: dict = {}
+    t_last = [t0]
+
+    def _mark(name):
+        """Wall time since the previous mark, after the device is idle."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        phases[name] = phases.get(name, 0.0) + (now - t_last[0])
+        t_last[0] = now
+
+    mesh_in = tuple(np.asarray(m) for m in meshes)
+    x, y, z = (np.asarray(m, dtype=np.float64) for m in meshes)
+    mesh_xyz = (x, y, z)
+    mode = options.resolve_precision(dev)
+    dtype = torch.float32 if mode == "fp32" else torch.float64
+
+    def _badmesh_return():
+        # The reference returns a nonzero flag for a bad mesh
+        # (ndsm_vector_potential.f90:212-215): A = 0, B = the input b.
+        b_t = torch.as_tensor(np.asarray(b), dtype=dtype, device=dev)
+        info = VectorPotentialInfo(ierr=IERR_BADMESH, wall_time=time.perf_counter() - t0)
+        return IERR_BADMESH, torch.zeros_like(b_t), b_t.clone(), info
+
+    for i, m in enumerate(mesh_xyz):
+        if m.ndim != 1:
+            raise ValueError(f"mesh vector {i} must be 1-D")
+        if m.size < 2 or mesh_uniformity_error(mesh_in[i]) is not None:
+            return _badmesh_return()
+    # Narrow-dtype meshes are regenerated as exactly uniform f64 over the
+    # same extent (f64 inputs stay bit-identical).
+    x, y, z = (
+        m if mi.dtype == np.float64 else np.linspace(float(m[0]), float(m[-1]), m.size)
+        for mi, m in zip(mesh_in, mesh_xyz)
+    )
+    mesh_xyz = (x, y, z)
+    b = np.asarray(b)
+    nz, ny, nx = len(z), len(y), len(x)
+    if b.shape != (3, nz, ny, nx):
+        raise ValueError(f"b shape {b.shape} != (3, {nz}, {ny}, {nx})")
+
+    Lq = np.array([m.max() - m.min() for m in mesh_xyz])
+    dq = np.array([m[1] - m[0] for m in mesh_xyz])
+
+    # ---- faces: Bn, fluxes, areas (only the six faces are uploaded)
+    _dbg(options, "Extract boundary conditions and face fluxes...")
+    bn = []
+    for f in range(6):
+        comp = F.FACE_COMP[f]
+        idx = F.face_volume_index(f, (nz, ny, nx))
+        bn.append(torch.as_tensor(np.ascontiguousarray(b[comp][idx]), dtype=dtype, device=dev))
+    spacings = []
+    for f in range(6):
+        d1, d2 = F.FACE_DIMS[f]
+        if options.reference_flux_quirk:
+            spacings.append((float(dq[0]), float(dq[1])))
+        else:
+            spacings.append((float(dq[d2]), float(dq[d1])))
+    areas = tuple(float(Lq[d1] * Lq[d2]) for (d1, d2) in F.FACE_DIMS)
+    chi_rhs, phi = _phase_pre(bn, spacings, areas)
+    _mark("faces")
+
+    # ---- six all-Neumann 2D solves, one lane-batched solve per hierarchy
+    _dbg(options, "Solve BVP on each boundary...")
+    chi = [None] * 6
+    chi_info = [None] * 6
+    groups = {}
+    for f in range(6):
+        d1, d2 = F.FACE_DIMS[f]
+        hierarchy = GridHierarchy.from_mesh((mesh_xyz[d2], mesh_xyz[d1]))
+        groups.setdefault(hierarchy, []).append(f)
+    for hierarchy, faces_in_group in groups.items():
+        rhss = [chi_rhs[f] for f in faces_in_group]
+        u0s = [torch.zeros_like(r) for r in rhss]
+        bvp = get_poisson_bvp(hierarchy, (("N", "N"), ("N", "N")), options, device=dev)
+        us, infos = bvp.solve_batch(
+            u0s, rhss, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+            names=[f"chi_face{f}" for f in faces_in_group],
+        )
+        for k, f in enumerate(faces_in_group):
+            chi[f] = us[k]
+            chi_info[f] = infos[k]
+    _mark("chi")
+
+    # ---- At = -grad(chi) x n (:387-399, 977-1031)
+    _dbg(options, "Compute vector potential boundary conditions...")
+    hs = []
+    for f in range(6):
+        d1, d2 = F.FACE_DIMS[f]
+        if options.reference_flux_quirk:
+            hs.append((float(dq[F.FACE_COMP[f]]),) * 2)
+        else:
+            hs.append((float(dq[d1]), float(dq[d2])))
+    signs = tuple(F.at_signs(f) for f in range(6))
+
+    # ---- three 3D mixed-BC solves, one component at a time (:598-691)
+    _dbg(options, "Solve BVP 3D...")
+    out_dtype = _DTYPES[options.output_dtype]
+    u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
+    hierarchy = GridHierarchy.from_mesh((z, y, x))
+    comp_info = []
+    comps = []
+    for comp in range(3):
+        # Neumann on the faces normal to this component, Dirichlet elsewhere
+        bcs = tuple(("N", "N") if (2 - axis) == comp else ("D", "D") for axis in range(3))
+        opts = options
+        if comp == 2 and not options.honor_ms_for_az:
+            opts = dataclasses.replace(options, ms=5)  # quirk Q3 (:685)
+        bvp = get_poisson_bvp(hierarchy, bcs, opts, device=dev)
+        u, info = bvp.solve(
+            u0s[comp], None, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+            name=f"A{'xyz'[comp]}", zero_rhs=True,
+        )
+        u0s[comp] = None
+        comp_info.append(info)
+        # float32 outputs: downcast early (frees the f64 solution)
+        comps.append(u.to(out_dtype) if out_dtype == torch.float32 else u)
+    A = torch.stack(comps)
+    del comps
+    _mark("solve3d")
+
+    # ---- flux-balance correction + curl (:453-477)
+    _dbg(options, "Compute B = curl(A) and flux correction...")
+    xs, ys, zs = (torch.as_tensor(m, dtype=dtype, device=dev) for m in (x, y, z))
+    A, B = _phase_post(
+        A, phi, xs, ys, zs, tuple(float(v) for v in Lq), tuple(float(v) for v in dq),
+        int(options.flux_correction_order), out_dtype,
+    )
+    _mark("post")
+
+    ierr = max([s.ierr for s in chi_info] + [s.ierr for s in comp_info])
+    info = VectorPotentialInfo(
+        ierr=ierr, chi=tuple(chi_info), components=tuple(comp_info),
+        wall_time=time.perf_counter() - t0, phases=phases,
+    )
+    return ierr, A, B, info

@@ -1,0 +1,137 @@
+"""Guards of the port: it stands alone (no JAX, no ndsm_tpu), it never
+hides the device or a kernel behind a fallback, and it refuses options
+whose feature it does not have yet."""
+
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ndsm_tpu
+import ndsm_tpu_torch
+from ndsm_tpu_torch import Options, convert
+from ndsm_tpu_torch.utils import cuda_build
+from ndsm_tpu_torch.utils.device import resolve_device
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(ndsm_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
+
+
+def _modules():
+    return sorted(PKG.rglob("*.py"))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, ndsm_tpu_torch, ndsm_tpu_torch.api, ndsm_tpu_torch.convert, "
+            "ndsm_tpu_torch.ops.zc, ndsm_tpu_torch.ops.df, ndsm_tpu_torch.utils.cuda_build; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_jax_import_in_source():
+    for path in _modules():
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "ndsm_tpu"), f"{path}: imports {n}"
+
+
+def test_no_exception_handlers_in_package():
+    """No broad try/except anywhere in the port: a kernel error is never
+    turned into a plain-torch run, a missing device never into a CPU run.
+    The one handler allowed is the LRU cache's ``except KeyError``."""
+    for path in _modules():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ExceptHandler):
+                caught = node.type.id if isinstance(node.type, ast.Name) else None
+                assert caught == "KeyError", f"{path}:{node.lineno} catches {ast.dump(node.type)}"
+
+
+def test_cuda_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    x = np.linspace(0, 1, 8)
+    b = np.zeros((3, 8, 8, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ndsm_tpu_torch.vector_potential(x, x, x, b)  # device="cuda" is the default
+    with pytest.raises(RuntimeError):
+        ndsm_tpu_torch.vector_potential(x, x, x, b, device="cuda:0")
+    h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x, x))
+    with pytest.raises(RuntimeError):
+        ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cuda")
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    if any(pathlib.Path(p, "nvcc").exists() for p in ("/usr/local/cuda/bin",)):
+        pytest.skip("this host has nvcc in the default location")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        cuda_build.find_nvcc()
+
+
+def test_precision_resolution():
+    o = Options()
+    assert o.resolve_precision("cuda") == "mixed"
+    assert o.resolve_precision(torch.device("cuda", 0)) == "mixed"
+    assert o.resolve_precision("cpu") == "fp64"
+    assert o.resolve_precision() == "fp64"
+    assert Options(precision="fp32").resolve_precision("cuda") == "fp32"
+
+
+@pytest.mark.parametrize("kw", [
+    {"per_face": True},
+    {"batch_components": "on"},
+    {"host_curl": True},
+    {"fetch_encoding": "split16"},
+])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Options(**kw)
+    with pytest.raises(NotImplementedError):
+        convert.options_from_reference(dataclasses.asdict(ndsm_tpu.Options(**kw)))
+
+
+def test_unported_arguments_raise():
+    x = np.linspace(0, 1, 8)
+    b = np.zeros((3, 8, 8, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ndsm_tpu_torch.vector_potential(x, x, x, b, dist=object(), device="cpu")
+    h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x, x))
+    bvp = ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        bvp.solve(np.zeros((8, 8, 8)), np.zeros((8, 8, 8)), history=True)
+    for bad in ("off", "interpret"):
+        with pytest.raises(ValueError):
+            Options(use_pallas=bad)
+    with pytest.raises(TypeError):
+        convert.options_from_reference({"ms": 5, "no_such_option": 1})
+
+
+def test_kernel_sources_packaged():
+    """The CUDA sources ship with the package (pyproject package-data)."""
+    names = {p.name for p in (PKG / "csrc").iterdir()}
+    assert {"zc_smooth.cu", "defect.cu", "stencil.cuh"} <= names
+    text = (REPO / "pyproject.toml").read_text()
+    assert '"ndsm_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
