@@ -8,18 +8,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   1. device: the card's name and ``nvidia-smi`` name/power limit; the
      kernels are built from ``ndsm_tpu_torch/csrc`` and the build timed.
   2. kernels: each CUDA kernel wrapper against its plain PyTorch version
-     on the card, at the main path's 220^3 and 110^3 float32 levels
-     (float64 for the defect), for the three component BC sets; bitwise
-     agreement is required.  Each kernel is timed beside its plain
-     version (CUDA events, warm, median of 7).
-  3. main path: ``vector_potential`` in mixed precision on the analytic
-     potential-field case at 22^3 and 220^3, checked against the golden
-     rows (bench.py's gate: |err - golden| < 2e-3 golden); the launch
-     counters are zeroed before the warm 220^3 run and every kernel must
-     have launched during it, with no plain version run on the card.
-     One more 220^3 run under torch.profiler gives the device busy time
-     and the kernels that take it.
-  4. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+     on the card, bitwise, each timed beside its plain version (CUDA
+     events, warm, median of 7, plain-kernel-kernel-plain):
+       - the 3D smoothers and the defect at the main path's 220^3 and
+         110^3 levels (float64 for the defect), three component BC sets;
+       - the 2D smoother (v2d) on six 220^2 and six 512^2 lanes (the chi
+         faces of 220^3 and 512^3), all-Neumann and mixed BCs;
+       - the all-Neumann 3D smoother at 220^3 and 256^3.
+  3. path 1, the main path: ``vector_potential`` in mixed precision on the
+     analytic potential-field case at 22^3 and 220^3, checked against the
+     golden rows (bench.py's gate: |err - golden| < 2e-3 golden); the
+     launch counters are zeroed before the warm 220^3 run and every kernel
+     of the path (the 3D smoothers, the defect, the three v2d forms) must
+     have launched during it, with no plain version run on the card.  One
+     more 220^3 run under torch.profiler gives the device busy time, the
+     kernels that take it, and the chi phase's launches and idle share.
+  4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
+     u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
+     zc_smooth_mean_3d launched, no plain version on the card, and the
+     error against the exact solution falls as h^2 (ratio 3.5-4.5).
+  5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -42,12 +50,45 @@ BC_SETS = {
     "Ay": (("D", "D"), ("N", "N"), ("D", "D")),
     "Az": (("N", "N"), ("D", "D"), ("D", "D")),
 }
+BC_2D = {"all_neumann": (("N", "N"), ("N", "N")), "mixed": (("D", "N"), ("N", "D"))}
+ALL_N_3D = (("N", "N"),) * 3
 SWEEPS = (1, 2, 5)
 REPS = 7
+MS = 5  # Options().ms: the sweeps of every smoothing call on both paths
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# device memory 3.35 TB/s; float32 67 TFLOP/s and float64 34 TFLOP/s
+# outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+
+# Work of one call per point, at ns sweeps: (bytes, operations, peak).
+# Bytes count each input read once and each output written once; the
+# operations are the update's adds and multiplies (10 a point-sweep in
+# 3D, 7 in 2D), +2 a point-sweep for the mean (its sum and subtraction),
+# +13 (3D) / +9 (2D) for a residual, +1 for the correction's add.
+WORK = {
+    "zc_smooth_3d": lambda ns: (12, 10 * ns, PEAK_F32),
+    "zc_smooth_residual_3d": lambda ns: (16, 10 * ns + 13, PEAK_F32),
+    "zc_smooth_cor_3d": lambda ns: (16, 10 * ns + 1, PEAK_F32),
+    "df_residual_3d": lambda ns: (24, 14, PEAK_F64),  # f64 u, f32 e in; f32 r, f64 u out
+    "zc_smooth_mean_3d": lambda ns: (12, 12 * ns, PEAK_F32),
+    "v2d_smooth": lambda ns: (12, 9 * ns, PEAK_F32),
+    "v2d_smooth_residual": lambda ns: (16, 9 * ns + 9, PEAK_F32),
+    "v2d_smooth_cor": lambda ns: (16, 9 * ns + 1, PEAK_F32),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(key: str, points: int, ns: int):
+    """(least ms the card could take, "bytes" or "operations")."""
+    b, ops, peak = WORK[key](ns)
+    tb, to = b * points / PEAK_BYTES * 1e3, ops * points / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -68,6 +109,12 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(out)
 
 
+def time_pair(kern, plain):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain; min of each."""
+    p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
+    return min(k1, k2), min(p1, p2)
+
+
 def compare(name: str, got, want):
     """Max |got - want| and the same in ulps of max|want|; raises unless
     bitwise equal."""
@@ -84,6 +131,27 @@ def compare(name: str, got, want):
             f"= {err / ulp:.2f} ulp of max|plain| {scale:.3e}"
         )
     return err, err / ulp
+
+
+class Stats:
+    """Per kernel: worst difference from the plain version, and the times
+    (kernel, plain, bound) at the configuration its path runs."""
+
+    def __init__(self):
+        self.s = {}
+
+    def note(self, key, err, ulp):
+        st = self.s.setdefault(key, {"err": 0.0, "ulp": 0.0})
+        st["err"] = max(st["err"], err)
+        st["ulp"] = max(st["ulp"], ulp)
+
+    def timed(self, key, kern, plain, points, ns, label, headline):
+        kms, pms = time_pair(kern, plain)
+        bms, by = bound(key, points, ns)
+        log(f"[time] {key:22s} {label}: kernel {kms:.4f} ms  plain {pms:.4f} ms  bound "
+            f"{bms:.4f} ms ({by}; {100 * bms / kms:.1f}% of it)")
+        if headline:
+            self.s[key].update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
 
 
 def phase_device():
@@ -104,49 +172,45 @@ def phase_device():
     t0 = time.perf_counter()
     cuda_build.kernels()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
+        f"(one nvcc per source, in parallel; {' '.join(cuda_build.NVCC_FLAGS)})")
     return name, smi
 
 
-def phase_kernels():
-    """Parity and timing of every kernel wrapper at the main path's shapes."""
+def phase_kernels(stats: Stats):
+    """Parity and timing of every kernel wrapper at its path's shapes."""
     import numpy as np
     import torch
 
     from ndsm_tpu_torch.grids import GridHierarchy
-    from ndsm_tpu_torch.ops import df, zc
+    from ndsm_tpu_torch.ops import df, v2d, zc
     from ndsm_tpu_torch.utils.testing import build_test_mesh
 
     dev = torch.device("cuda")
-    h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
     rng = np.random.default_rng(2024)
-    stats = {k: {"err": 0.0, "ulp": 0.0, "ms": {}, "plain_ms": {}} for k in
-             ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d")}
 
     def f32(shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
 
-    def note(key, err, ulp):
-        stats[key]["err"] = max(stats[key]["err"], err)
-        stats[key]["ulp"] = max(stats[key]["ulp"], ulp)
-
+    # -- the 3D smoothers and the defect (main path, component solves)
+    h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
     for level in (0, 1):
         shape, dq = h.shapes[level], h.dq[level]
         n = shape[0]
+        pts = int(np.prod(shape))
         for tag, bcs in BC_SETS.items():
             u, rhs, cor = f32(shape), f32(shape), f32(shape)
             for ns in SWEEPS:
-                note("zc_smooth_3d", *compare(
+                stats.note("zc_smooth_3d", *compare(
                     f"zc_smooth_3d {n}^3 {tag} ns={ns}",
                     zc.zc_smooth_3d(u, rhs, dq, bcs, ns),
                     zc.zc_smooth_3d_plain(u, rhs, dq, bcs, ns)))
                 got_u, got_r = zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ns)
                 want_u, want_r = zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, ns)
-                note("zc_smooth_residual_3d", *compare(
+                stats.note("zc_smooth_residual_3d", *compare(
                     f"zc_smooth_residual_3d(u) {n}^3 {tag} ns={ns}", got_u, want_u))
-                note("zc_smooth_residual_3d", *compare(
+                stats.note("zc_smooth_residual_3d", *compare(
                     f"zc_smooth_residual_3d(r) {n}^3 {tag} ns={ns}", got_r, want_r))
-                note("zc_smooth_cor_3d", *compare(
+                stats.note("zc_smooth_cor_3d", *compare(
                     f"zc_smooth_cor_3d {n}^3 {tag} ns={ns}",
                     zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ns),
                     zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, ns)))
@@ -163,38 +227,84 @@ def phase_kernels():
                 got = df.df_residual_3d(u64, r_, e_, dq, bcs)
                 want = df.df_residual_3d_plain(u64, r_, e_, dq, bcs)
                 for part, g, w in zip(("r32", "max", "u"), got, want):
-                    note("df_residual_3d", *compare(
+                    stats.note("df_residual_3d", *compare(
                         f"df_residual_3d {form} ({part}) {n}^3 {tag}", g, w))
-            log(f"[kernels] {n}^3 {tag}: all kernels bitwise equal to their plain "
-                f"versions (ns in {SWEEPS}; defect zero-rhs/rhs/update)")
+            log(f"[kernels] {n}^3 {tag}: 3D smoothers and defect bitwise equal to their "
+                f"plain versions (ns in {SWEEPS}; defect zero-rhs/rhs/update)")
+            head = n == 220 and tag == "Ax"
+            lab = f"{n}^3 {tag} ns={MS}"
+            stats.timed("zc_smooth_3d", lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS),
+                        lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, MS), pts, MS, lab, head)
+            stats.timed("zc_smooth_residual_3d",
+                        lambda: zc.zc_smooth_residual_3d(u, rhs, dq, bcs, MS),
+                        lambda: zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, MS),
+                        pts, MS, lab, head)
+            stats.timed("zc_smooth_cor_3d",
+                        lambda: zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, MS),
+                        lambda: zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, MS),
+                        pts, MS, lab, head)
+            stats.timed("df_residual_3d", lambda: df.df_residual_3d(u64, None, e32, dq, bcs),
+                        lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
+                        pts, 1, f"{n}^3 {tag} zero-rhs+update", head)
 
-            # Timing at the main path's configuration (ms=5, zero-rhs update).
-            ms = 5
-            runs = {
-                "zc_smooth_3d": (lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, ms),
-                                 lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, ms)),
-                "zc_smooth_residual_3d": (
-                    lambda: zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ms),
-                    lambda: zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, ms)),
-                "zc_smooth_cor_3d": (
-                    lambda: zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ms),
-                    lambda: zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, ms)),
-                "df_residual_3d": (
-                    lambda: df.df_residual_3d(u64, None, e32, dq, bcs),
-                    lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs)),
-            }
-            for key, (kern, plain) in runs.items():
-                # plain, kernel, kernel, plain: compare within one call
-                p1, k1, k2, p2 = time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)
-                kms, pms = min(k1, k2), min(p1, p2)
-                stats[key]["ms"].setdefault(n, {})[tag] = kms
-                stats[key]["plain_ms"].setdefault(n, {})[tag] = pms
-                what = ("zero-rhs+update" if key == "df_residual_3d" else
-                        f"ms=5 sweeps, {n**3 * ms / kms / 1e6:.1f} G point-sweeps/s")
-                log(f"[time] {key:22s} {n}^3 {tag}: kernel {kms:.4f} ms  plain "
-                    f"{pms:.4f} ms  ({what})")
+    # -- v2d: six lanes of the chi faces of 220^3 and 512^3
+    for n in (220, 512):
+        x = build_test_mesh(n)[0]
+        dq = GridHierarchy.from_mesh((x, x)).dq[0]
+        shape = (6, n, n)
+        pts = 6 * n * n
+        for tag, bcs in BC_2D.items():
+            u, rhs, cor = f32(shape), f32(shape), f32(shape)
+            for ns in SWEEPS:
+                stats.note("v2d_smooth", *compare(
+                    f"v2d_smooth 6x{n}^2 {tag} ns={ns}",
+                    v2d.v2d_smooth(u, rhs, dq, bcs, ns),
+                    v2d.v2d_smooth_plain(u, rhs, dq, bcs, ns)))
+                got_u, got_r = v2d.v2d_smooth_residual(u, rhs, dq, bcs, ns)
+                want_u, want_r = v2d.v2d_smooth_residual_plain(u, rhs, dq, bcs, ns)
+                stats.note("v2d_smooth_residual", *compare(
+                    f"v2d_smooth_residual(u) 6x{n}^2 {tag} ns={ns}", got_u, want_u))
+                stats.note("v2d_smooth_residual", *compare(
+                    f"v2d_smooth_residual(r) 6x{n}^2 {tag} ns={ns}", got_r, want_r))
+                stats.note("v2d_smooth_cor", *compare(
+                    f"v2d_smooth_cor 6x{n}^2 {tag} ns={ns}",
+                    v2d.v2d_smooth_cor(u, cor, rhs, dq, bcs, ns),
+                    v2d.v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, ns)))
+            log(f"[kernels] 6x{n}^2 {tag}: v2d forms bitwise equal to their plain versions "
+                f"(ns in {SWEEPS})")
+            head = n == 220 and tag == "all_neumann"
+            lab = f"6x{n}^2 {tag} ns={MS}"
+            stats.timed("v2d_smooth", lambda: v2d.v2d_smooth(u, rhs, dq, bcs, MS),
+                        lambda: v2d.v2d_smooth_plain(u, rhs, dq, bcs, MS), pts, MS, lab, head)
+            stats.timed("v2d_smooth_residual",
+                        lambda: v2d.v2d_smooth_residual(u, rhs, dq, bcs, MS),
+                        lambda: v2d.v2d_smooth_residual_plain(u, rhs, dq, bcs, MS),
+                        pts, MS, lab, head)
+            stats.timed("v2d_smooth_cor", lambda: v2d.v2d_smooth_cor(u, cor, rhs, dq, bcs, MS),
+                        lambda: v2d.v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, MS),
+                        pts, MS, lab, head)
+
+    # -- the all-Neumann 3D smoother (path 2's levels)
+    for n in (220, 256):
+        x = np.linspace(0.0, 1.0, n)
+        dq = GridHierarchy.from_mesh((x, x, x)).dq[0]
+        shape = (n, n, n)
+        u, rhs = f32(shape), f32(shape)
+        for ns in SWEEPS:
+            stats.note("zc_smooth_mean_3d", *compare(
+                f"zc_smooth_mean_3d {n}^3 ns={ns}",
+                zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, ns),
+                zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, ns)))
+        log(f"[kernels] {n}^3 all-Neumann: zc_smooth_mean_3d bitwise equal to its plain "
+            f"version (ns in {SWEEPS})")
+        stats.timed("zc_smooth_mean_3d",
+                    lambda: zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, MS),
+                    lambda: zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, MS),
+                    n**3, MS, f"{n}^3 ns={MS}", n == 256)
+        del u, rhs
+
     log("[kernels] max difference from the plain version, in ulps of max|plain|: "
-        + ", ".join(f"{k} {v['ulp']:.1f}" for k, v in stats.items()))
+        + ", ".join(f"{k} {v['ulp']:.1f}" for k, v in stats.s.items()))
     # Device-to-device copy bandwidth: the card's practical memory roof.
     big = torch.empty(2**27, dtype=torch.float32, device=dev)
     dst = torch.empty_like(big)
@@ -202,7 +312,20 @@ def phase_kernels():
     log(f"[time] device-to-device copy of 512 MiB: {cms:.4f} ms = "
         f"{2 * big.numel() * 4 / cms / 1e6:.1f} GB/s (read + write)")
     del big, dst
-    return stats
+
+
+def check_counts(what: str, launches: dict, plain: dict, need) -> None:
+    log(f"[{what}] launches {launches}; plain versions on the card {plain}")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+    if any(plain.values()):
+        raise AssertionError(f"{what}: plain versions ran on CUDA tensors: {plain}")
+
+
+PATH1 = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d",
+         "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+PATH2 = ("zc_smooth_mean_3d",)
 
 
 def phase_main_path():
@@ -210,6 +333,7 @@ def phase_main_path():
     import torch
 
     from ndsm_tpu_torch import ops, vector_potential
+    from ndsm_tpu_torch.potential.vector_potential import CHI_RANGE
     from ndsm_tpu_torch.utils.testing import build_test_mesh, potential_field_case
 
     def run(n):
@@ -246,34 +370,89 @@ def phase_main_path():
     wall, info = run(220)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    plain = ops.plain_cuda_counts()
-    log(f"[main] 220^3 warm: launches {launches}; plain versions on the card {plain}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on CUDA tensors: {plain}")
+    check_counts("main 220^3 warm", launches, ops.plain_cuda_counts(), PATH1)
+    log(f"[main] 220^3 warm: chi phase {info.phases['chi']:.4f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # Where the time goes: one more warm 220^3 run under torch.profiler.
     # Device busy time = the summed durations of device-side events
     # (kernels and copies); CPU ops are left out, they would count their
-    # kernels twice.
+    # kernels twice.  The chi phase is the events inside its named range.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pwall, _ = run(220)
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        pwall, pinfo = run(220)
+    # (the chi range also appears as a device-side annotation: not a kernel)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0 and e.key != CHI_RANGE]
     if not dev:
         raise AssertionError("the profiler recorded no device events")
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    log(f"[profile] 220^3: device busy {busy:.4f} s; wall {pwall:.4f} s under the profiler "
-        f"(idle share {1.0 - busy / pwall:.3f}), {wall:.4f} s without it (idle share "
-        f"{1.0 - busy / wall:.3f}); top device time:")
+    launched = sum(e.count for e in dev)
+    log(f"[profile] 220^3: device busy {busy:.4f} s, {launched} device events; wall "
+        f"{pwall:.4f} s under the profiler (idle share {1.0 - busy / pwall:.3f}), "
+        f"{wall:.4f} s without it (idle share {1.0 - busy / wall:.3f}); top device time:")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:100]}")
+    events = prof.events()
+    rng = [e for e in events if e.name == CHI_RANGE and e.device_type == DeviceType.CPU]
+    if len(rng) != 1:
+        raise AssertionError(f"expected one {CHI_RANGE} range in the trace, got {len(rng)}")
+    lo, hi = rng[0].time_range.start, rng[0].time_range.end
+    chi_dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name != CHI_RANGE and lo <= e.time_range.start <= hi]
+    chi_busy = sum(e.time_range.elapsed_us() for e in chi_dev) / 1e6
+    chi_wall = (hi - lo) / 1e6
+    by_name = {}
+    for e in chi_dev:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    top = ", ".join(f"{k[:40]} x{v}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    log(f"[profile] chi phase: {len(chi_dev)} device events, device busy {chi_busy:.4f} s of "
+        f"{chi_wall:.4f} s (idle share {1.0 - chi_busy / chi_wall:.3f}); cycles "
+        + " ".join(f"{s.name}={s.cycles}" for s in pinfo.chi) + f"; most launched: {top}")
+    return launches
+
+
+def phase_neumann_3d():
+    """Path 2: the 3D all-Neumann mixed solve on an analytic case."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import GridHierarchy, Options, PoissonBVP, ops
+
+    errs = {}
+    launches = None
+    for n in (128, 256):
+        x = np.linspace(0.0, 1.0, n)
+        c = np.cos(np.pi * x)
+        ue = c[:, None, None] * c[None, :, None] * c[None, None, :]
+        rhs = -3.0 * np.pi**2 * ue
+        rhs -= rhs.mean()
+        bvp = PoissonBVP(GridHierarchy.from_mesh((x, x, x)), ALL_N_3D,
+                         Options(precision="mixed"), device="cuda")
+        bvp.solve(np.zeros_like(rhs), rhs)  # cold: first use of the engines
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        u, info = bvp.solve(np.zeros_like(rhs), rhs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        if info.ierr != 0:
+            raise AssertionError(f"all-Neumann {n}^3: ierr={info.ierr}")
+        un = u.cpu().numpy()
+        if un.shape != (n, n, n) or not np.isfinite(un).all():
+            raise AssertionError(f"all-Neumann {n}^3: bad solution {un.shape}")
+        errs[n] = float(np.abs((un - un.mean()) - (ue - ue.mean())).max())
+        log(f"[neumann3d] {n}^3 mixed: cycles {info.cycles}, warm wall {wall:.4f} s, "
+            f"max|u - exact| {errs[n]:.5e} (both mean-free)")
+        check_counts(f"neumann3d {n}^3", counts, plain, PATH2)
+        launches = counts
+    ratio = errs[128] / errs[256]
+    log(f"[neumann3d] error ratio 128^3 / 256^3 = {ratio:.3f} (h^2 predicts "
+        f"{(255 / 127) ** 2:.3f}; required 3.5-4.5)")
+    if not 3.5 <= ratio <= 4.5:
+        raise AssertionError(f"all-Neumann 3D solve does not converge as h^2: ratio {ratio}")
     return launches
 
 
@@ -288,24 +467,32 @@ def main() -> int:
     import ndsm_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from ndsm_tpu_torch import ops
 
+    t0 = time.perf_counter()
     name, _ = phase_device()
-    stats = phase_kernels()
-    launches = phase_main_path()
+    stats = Stats()
+    phase_kernels(stats)
+    path1 = phase_main_path()
+    path2 = phase_neumann_3d()
     kernels = []
-    for wrapper, _, replaces in ops.KERNELS:
+    for wrapper, _, replaces, source in ops.KERNELS:
         key = wrapper.__name__
-        src = "csrc/defect.cu" if key == "df_residual_3d" else "csrc/zc_smooth.cu"
-        st = stats[key]
+        st = stats.s[key]
+        on1 = key in PATH1
         kernels.append({
             "name": key,
             "route": "cuda",
-            "source": f"ndsm_tpu_torch/{src}",
+            "source": source,
             "replaces": replaces,
-            "launches": launches[key],
+            "launches": (path1 if on1 else path2)[key],
             "max_abs_err": st["err"],
-            "ms": st["ms"][220]["Ax"],
-            "plain_ms": st["plain_ms"][220]["Ax"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"],
+            "library_ms": None,
+            "path": "vector_potential 220^3 mixed" if on1 else "all-Neumann 3D solve 256^3",
         })
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

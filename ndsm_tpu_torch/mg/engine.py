@@ -11,14 +11,23 @@ What the port changes:
   * the loops are driven from the host (PyTorch runs eagerly); the coarse
     relaxation checks its stopping metric after every sweep, as the
     reference does;
-  * on a float32 3D level that is not all-Neumann, every smoothing call
-    goes through the kernel wrappers of ops/zc.py, at EVERY level: on a
-    CUDA tensor that is the hand-written kernel, on a CPU tensor its
-    plain version.  The JAX engine's TPU-calibrated size gate, pass-width
-    rule and padded work storage (128-lane alignment) have no
-    counterpart: the CUDA kernels take any shape;
-  * a leading lane axis is allowed on the plain-torch path (2D chi faces
-    in ``solve_batch``): every op acts per lane.
+  * on every float32 level, every smoothing call goes through a kernel
+    wrapper: on a CUDA tensor that is the hand-written kernel, on a CPU
+    tensor its plain version.
+      - 3D, not all-Neumann: ops/zc.py's zc_smooth_3d/_residual/_cor;
+      - 3D all-Neumann: ops/zc.py's zc_smooth_mean_3d (sweep, then
+        subtract the global mean, as the JAX engine composes it from
+        zc_smooth_mean_3d passes); its residual is the plain one, and the
+        correction is added before it, as in JAX, whose residual and
+        correction kernels exclude all-Neumann;
+      - 2D, with or without a lane axis (the chi faces): ops/v2d.py.
+    The JAX engine's TPU-calibrated size gates, pass widths and padded
+    work storage (128-lane alignment) have no counterpart: the CUDA
+    kernels take any shape.  One JAX gate stays: a 2D level with an
+    extent < 3 smooths in plain torch, as JAX's runs on XLA there
+    (ndsm_tpu/ops/pallas_v2d.py:v2d_kernel_supported);
+  * a leading lane axis is allowed on 2D levels (the chi faces in
+    ``solve_batch``): every op acts per lane.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy
-from ..ops import stencils, zc
+from ..ops import stencils, v2d, zc
 from ..ops.reduce import du_metrics
 from ..ops.transfer import (
     apply_axis_matrices,
@@ -69,13 +78,12 @@ class MGEngine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.ndim = hierarchy.ndim
-        # The kernel route: float32, 3D, not all-Neumann (the per-sweep
-        # mean of an all-Neumann problem is zc_smooth_mean_3d, not ported).
-        self.kernel_route = (
-            dtype == torch.float32
-            and hierarchy.ndim == 3
-            and not stencils.is_all_neumann(self.bcs)
-        )
+        # The kernel route of float32 levels (module docstring).
+        self.kernel_route = None
+        if dtype == torch.float32 and hierarchy.ndim == 3:
+            self.kernel_route = "zc_mean" if stencils.is_all_neumann(self.bcs) else "zc"
+        elif dtype == torch.float32 and hierarchy.ndim == 2:
+            self.kernel_route = "v2d"
         coarse_shape = hierarchy.shapes[-1]
         self.coarse_direct = bool(coarse_direct) and int(
             np.prod(coarse_shape)
@@ -115,36 +123,53 @@ class MGEngine:
     # Level primitives
     # ------------------------------------------------------------------
 
-    def _kernel(self, x) -> bool:
-        return self.kernel_route and x.ndim == 3
+    def _route(self, x, level: int):
+        """The kernel route for ``x`` on ``level``, or None (plain torch)."""
+        if self.kernel_route == "v2d":
+            # JAX smooths a 2D level with an extent < 3 on XLA; so does the port.
+            return "v2d" if min(self.h.shapes[level]) >= 3 else None
+        if self.kernel_route is not None and x.ndim == 3:
+            return self.kernel_route
+        return None
 
     def t_sweep(self, u, rhs, level: int):
-        if self._kernel(u):
-            return zc.zc_smooth_3d(u, rhs, self._dq[level], self.bcs, 1)
-        return stencils.rb_sweep(u, rhs, self._dq[level], self.bcs)
+        return self.t_smooth(u, rhs, level, nsweeps=1)
 
     def t_smooth(self, u, rhs, level: int, nsweeps: int | None = None):
         n = self.ms if nsweeps is None else nsweeps
         if n == 0:
             return u
-        if self._kernel(u):
-            return zc.zc_smooth_3d(u, rhs, self._dq[level], self.bcs, n)
+        dq, route = self._dq[level], self._route(u, level)
+        if route == "zc":
+            return zc.zc_smooth_3d(u, rhs, dq, self.bcs, n)
+        if route == "zc_mean":
+            return zc.zc_smooth_mean_3d(u, rhs, dq, self.bcs, n)
+        if route == "v2d":
+            return v2d.v2d_smooth(u, rhs, dq, self.bcs, n)
         for _ in range(n):
-            u = stencils.rb_sweep(u, rhs, self._dq[level], self.bcs)
+            u = stencils.rb_sweep(u, rhs, dq, self.bcs)
         return u
 
     def t_smooth_residual(self, u, rhs, level: int):
         """ms pre-smooth sweeps + residual; returns (u_smoothed, residual)."""
-        if self.ms >= 1 and self._kernel(u):
-            return zc.zc_smooth_residual_3d(u, rhs, self._dq[level], self.bcs, self.ms)
+        if self.ms >= 1:
+            dq, route = self._dq[level], self._route(u, level)
+            if route == "zc":
+                return zc.zc_smooth_residual_3d(u, rhs, dq, self.bcs, self.ms)
+            if route == "v2d":
+                return v2d.v2d_smooth_residual(u, rhs, dq, self.bcs, self.ms)
         u = self.t_smooth(u, rhs, level)
         return u, self.t_residual(u, rhs, level)
 
     def t_smooth_cor(self, u, cor, rhs, level: int):
         """ms post-smooth sweeps on (u + cor) — the ascent's
         correct-then-relax (reference ndsm_multigrid_core.f90:659-682)."""
-        if self.ms >= 1 and self._kernel(u):
-            return zc.zc_smooth_cor_3d(u, cor, rhs, self._dq[level], self.bcs, self.ms)
+        if self.ms >= 1:
+            dq, route = self._dq[level], self._route(u, level)
+            if route == "zc":
+                return zc.zc_smooth_cor_3d(u, cor, rhs, dq, self.bcs, self.ms)
+            if route == "v2d":
+                return v2d.v2d_smooth_cor(u, cor, rhs, dq, self.bcs, self.ms)
         return self.t_smooth(u + cor, rhs, level)
 
     def t_residual(self, u, rhs, level: int):

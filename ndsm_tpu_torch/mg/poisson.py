@@ -15,9 +15,9 @@ Precision modes, as in the JAX package:
         (ops/df.py, a CUDA kernel on the card).  The iterate is ONE
         float64 tensor: the JAX package carried an f32 pair because f64
         was emulated on its TPU.
-      - otherwise (the 2D chi faces): ``_mixed_group`` — float64 defect,
-        scaled to unit max, float64 update; all-Neumann problems
-        re-center the mean (poisson.py:250-328).
+      - otherwise (the 2D chi faces, a 3D all-Neumann box): ``_mixed_group``
+        — float64 defect, scaled to unit max, float64 update; all-Neumann
+        problems re-center the mean (poisson.py:250-328).
   * ``fp32``: everything in float32.
 
 The loops run on the host: every V-cycle reads its du (one device sync).
@@ -90,7 +90,8 @@ class PoissonBVP:
       bcs: per-axis ("N"/"D", "N"/"D") homogeneous boundary conditions.
       options: solver options; ``options.precision`` picks the mode
         ("auto" resolves by ``device``).
-      device: where the solve runs ("cuda" raises without a CUDA device).
+      device: where the solve runs: "cuda" (the default) raises without a
+        CUDA device; "cpu" runs the kernels' plain PyTorch versions.
     """
 
     def __init__(
@@ -98,7 +99,7 @@ class PoissonBVP:
         hierarchy: GridHierarchy,
         bcs: Sequence[Sequence[str]],
         options: Options = Options(),
-        device="cpu",
+        device="cuda",
     ):
         self.h = hierarchy
         self.bcs = stencils.validate_bcs(bcs, hierarchy.ndim)
@@ -400,7 +401,7 @@ def get_poisson_bvp(
     hierarchy: GridHierarchy,
     bcs: Sequence[Sequence[str]],
     options: Options = Options(),
-    device="cpu",
+    device="cuda",
 ) -> PoissonBVP:
     """Memoized PoissonBVP construction (tolerances and limits are passed
     per call, so they are not part of the key)."""

@@ -8,7 +8,34 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["du_metrics", "trapz_2d", "trapz_weights_1d"]
+__all__ = ["du_metrics", "trapz_2d", "trapz_weights_1d", "SUM_THREADS",
+           "strided_block_sum"]
+
+#: Threads per block of the CUDA sum reductions (csrc/v2d_smooth.cu,
+#: csrc/zc_smooth.cu); the plain version below follows their order.
+SUM_THREADS = 1024
+
+
+def strided_block_sum(x: torch.Tensor, nblocks: int = 1) -> torch.Tensor:
+    """Sums over the last axis of ``x`` in the fixed order of the CUDA
+    reductions, one per block: thread ``g`` of ``G = nblocks * SUM_THREADS``
+    adds flat indices g, g+G, g+2G, ... in turn (starting from 0.0), then
+    each block folds its threads' sums in a tree with strides 512, 256,
+    ..., 1.  Returns ``(..., nblocks)`` partial sums; every add is one
+    rounded operation, so the kernels match this bit for bit."""
+    n = x.shape[-1]
+    g = nblocks * SUM_THREADS
+    k = -(-n // g)
+    cols = torch.nn.functional.pad(x, (0, k * g - n)).reshape(x.shape[:-1] + (k, g))
+    acc = torch.zeros(x.shape[:-1] + (g,), dtype=x.dtype, device=x.device)
+    for i in range(k):
+        acc = acc + cols[..., i, :]
+    acc = acc.reshape(x.shape[:-1] + (nblocks, SUM_THREADS))
+    width = SUM_THREADS
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    return acc[..., 0]
 
 
 def du_metrics(u_new: torch.Tensor, u_old: torch.Tensor, ndim: int | None = None

@@ -2,9 +2,9 @@
 for any number of dimensions, in plain PyTorch (port of
 ``ndsm_tpu/ops/stencils.py``).
 
-These functions are the oracles of the port: every CUDA kernel in ops/zc.py
-and ops/df.py has a plain version built from them, and the CPU tests hold
-them against the JAX functions of the same name.
+These functions are the oracles of the port: every CUDA kernel in ops/zc.py,
+ops/v2d.py and ops/df.py has a plain version built from them, and the CPU
+tests hold them against the JAX functions of the same name.
 
 Semantics (see the JAX module for the derivation from the reference):
 
@@ -45,6 +45,7 @@ __all__ = [
     "stencil_weights",
     "interior_mask",
     "color_masks",
+    "red_black",
     "rb_sweep",
     "poisson_residual",
     "subtract_mean",
@@ -160,18 +161,23 @@ def _half_sweep(u, rhs, w, w0, mask, nb: int):
     return torch.where(mask, unew, u)
 
 
-def rb_sweep(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
-    """One red-black Gauss-Seidel sweep: red half-update, black half-update
-    (reading the updated red values), then the mean subtraction when all
-    faces are Neumann (reference ndsm_optimized.f90:40; ndsm_poisson.f90:451)."""
-    ndim = len(bcs)
-    nb = u.ndim - ndim
+def red_black(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
+    """The two half-updates of a sweep, red then black (reading the updated
+    red values), without the all-Neumann mean subtraction."""
+    nb = u.ndim - len(bcs)
     w, w0 = stencil_weights(dq, u.dtype)
     red, black = color_masks(tuple(u.shape[nb:]), bcs, u.device)
     u = _half_sweep(u, rhs, w, w0, red, nb)
-    u = _half_sweep(u, rhs, w, w0, black, nb)
+    return _half_sweep(u, rhs, w, w0, black, nb)
+
+
+def rb_sweep(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
+    """One red-black Gauss-Seidel sweep: ``red_black``, then the mean
+    subtraction when all faces are Neumann (reference ndsm_optimized.f90:40;
+    ndsm_poisson.f90:451)."""
+    u = red_black(u, rhs, dq, bcs)
     if is_all_neumann(bcs):
-        u = subtract_mean(u, ndim)
+        u = subtract_mean(u, len(bcs))
     return u
 
 

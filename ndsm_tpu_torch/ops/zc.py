@@ -1,6 +1,6 @@
 """Red-black smoother kernels for float32 3D levels (port of
 ``ndsm_tpu/ops/pallas_zc.py``: ``zc_smooth_3d``, ``zc_smooth_residual_3d``,
-``zc_smooth_cor_3d``).
+``zc_smooth_cor_3d`` and ``zc_smooth_mean_3d``).
 
 Each wrapper takes the level's tensors and its static configuration (dq,
 bcs, number of sweeps):
@@ -16,26 +16,35 @@ The plain versions are the oracles the kernels are held to on the card
 compare with the JAX kernels.  Nothing on the main path calls a plain
 version for a CUDA tensor; ``plain_cuda_calls`` counts any that does.
 
-Semantics (the JAX builders'): ``nsweeps`` calls of ``rb_sweep`` on a
-3D problem that is not all-Neumann (the per-sweep mean of an all-Neumann
-problem is ``zc_smooth_mean_3d``, not ported yet).  The wrappers are
+Semantics (the JAX kernels'): ``nsweeps`` calls of ``rb_sweep``.  The
+first three take a problem that is not all-Neumann; ``zc_smooth_mean_3d``
+takes the all-Neumann one, where every sweep is followed by the
+subtraction of the global mean ``m = f32(sum(u) / f32(N))`` (a division,
+as in the JAX engine's ``_t_smooth_zc_mean``), the sum taken in the
+kernels' fixed order (``reduce.strided_block_sum``).  The wrappers are
 functional: inputs are never modified.
 
 Kernel design (see the source note in csrc/zc_smooth.cu): one launch per
 half-sweep, 2*nsweeps launches per call.  The first half-sweep runs out of
 place (into a new tensor, adding ``cor`` on load for the correction form),
 the rest in place on that tensor; the residual form adds one residual
-launch.  Unlike the TPU kernels there is no shape gate, no pass width and
-no padded storage: every 3D shape with extents >= 2 is taken.
+launch.  The mean form runs each sweep out of place, ping-ponging between
+two buffers: its first half-sweep subtracts the previous sweep's mean on
+load (read from a device scalar, never from the host), and two launches
+per sweep reduce the swept state into the next mean.  Unlike the TPU
+kernels there is no shape gate, no pass width and no padded storage:
+every 3D shape with extents >= 2 is taken.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import stencils
+from .reduce import SUM_THREADS, strided_block_sum
 
 __all__ = [
     "zc_smooth_3d",
@@ -44,8 +53,14 @@ __all__ = [
     "zc_smooth_3d_plain",
     "zc_smooth_residual_3d_plain",
     "zc_smooth_cor_3d_plain",
+    "zc_smooth_mean_3d",
+    "zc_smooth_mean_3d_plain",
     "dirichlet_mask",
+    "mean_blocks",
 ]
+
+#: Most blocks of the first pass of the mean's reduction.
+MEAN_MAX_BLOCKS = 256
 
 
 def dirichlet_mask(bcs) -> int:
@@ -59,20 +74,23 @@ def dirichlet_mask(bcs) -> int:
     return m
 
 
-def check_level(name: str, tensors, dtype: torch.dtype, shape=None) -> None:
-    """Raise unless every tensor is a contiguous 3D ``dtype`` tensor of one
-    shape (``shape`` if given; every extent >= 2) on one device."""
+def check_level(name: str, tensors, dtype: torch.dtype, shape=None, ndim: int = 3,
+                lanes: bool = False) -> None:
+    """Raise unless every tensor is a contiguous ``dtype`` tensor of one
+    shape (``shape`` if given) on one device: ``ndim`` spatial axes of
+    extent >= 2, after one leading lane axis when ``lanes`` allows it."""
     t0 = tensors[0]
     shape = tuple(t0.shape) if shape is None else tuple(shape)
+    ranks = (ndim, ndim + 1) if lanes else (ndim,)
     for t in tensors:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected torch.Tensor, got {type(t).__name__}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape or len(shape) != 3 or min(shape) < 2:
+        if tuple(t.shape) != shape or len(shape) not in ranks or min(shape[-ndim:]) < 2:
             raise ValueError(
-                f"{name}: expected one 3D shape with extents >= 2, got "
-                f"{tuple(t.shape)} (expected {shape})"
+                f"{name}: expected one {ndim}D shape{' (with lanes)' if lanes else ''} "
+                f"with extents >= 2, got {tuple(t.shape)} (expected {shape})"
             )
         if t.device != t0.device:
             raise ValueError(f"{name}: tensors on {t0.device} and {t.device}")
@@ -82,10 +100,13 @@ def check_level(name: str, tensors, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name}: unsupported device {t0.device}")
 
 
-def _check_config(name: str, dq, bcs, nsweeps: int):
+def _check_config(name: str, dq, bcs, nsweeps: int, all_neumann: bool = False):
     bcs = stencils.validate_bcs(bcs, 3)
-    if stencils.is_all_neumann(bcs):
-        raise ValueError(f"{name}: all-Neumann BCs need the per-sweep mean")
+    if stencils.is_all_neumann(bcs) != all_neumann:
+        raise ValueError(
+            f"{name}: all-Neumann BCs need the per-sweep mean (zc_smooth_mean_3d)"
+            if not all_neumann else f"{name}: takes all-Neumann BCs only, got {bcs}"
+        )
     if int(nsweeps) < 1:
         raise ValueError(f"{name}: nsweeps must be >= 1, got {nsweeps}")
     if len(dq) != 3:
@@ -93,7 +114,12 @@ def _check_config(name: str, dq, bcs, nsweeps: int):
     return bcs
 
 
-def _count_plain(fn, u: torch.Tensor) -> None:
+def mean_blocks(n: int) -> int:
+    """Blocks of the first reduction pass over ``n`` points."""
+    return min(MEAN_MAX_BLOCKS, -(-int(n) // SUM_THREADS))
+
+
+def count_plain(fn, u: torch.Tensor) -> None:
     if u.device.type == "cuda":
         fn.plain_cuda_calls += 1
 
@@ -105,7 +131,7 @@ def _count_plain(fn, u: torch.Tensor) -> None:
 
 def zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """``nsweeps`` calls of ``stencils.rb_sweep``."""
-    _count_plain(zc_smooth_3d_plain, u)
+    count_plain(zc_smooth_3d_plain, u)
     for _ in range(int(nsweeps)):
         u = stencils.rb_sweep(u, rhs, dq, bcs)
     return u
@@ -113,7 +139,7 @@ def zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
 
 def zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps: int):
     """(u', r): ``nsweeps`` sweeps, then ``poisson_residual`` of u'."""
-    _count_plain(zc_smooth_residual_3d_plain, u)
+    count_plain(zc_smooth_residual_3d_plain, u)
     for _ in range(int(nsweeps)):
         u = stencils.rb_sweep(u, rhs, dq, bcs)
     return u, stencils.poisson_residual(u, rhs, dq, bcs)
@@ -121,14 +147,34 @@ def zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps: int):
 
 def zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """``nsweeps`` sweeps on ``u + cor``."""
-    _count_plain(zc_smooth_cor_3d_plain, u)
+    count_plain(zc_smooth_cor_3d_plain, u)
     u = u + cor
     for _ in range(int(nsweeps)):
         u = stencils.rb_sweep(u, rhs, dq, bcs)
     return u
 
 
-for _f in (zc_smooth_3d_plain, zc_smooth_residual_3d_plain, zc_smooth_cor_3d_plain):
+def _global_mean(u: torch.Tensor) -> torch.Tensor:
+    """0-d ``f32(sum(u) / f32(N))``: per-block sums, then one block's sum
+    of those, then a true division (by a device tensor: PyTorch turns a
+    division by a host scalar into a multiply by its reciprocal)."""
+    n = u.numel()
+    parts = strided_block_sum(u.reshape(-1), mean_blocks(n))
+    total = strided_block_sum(parts)[0]
+    return total / torch.full((), float(np.float32(n)), dtype=u.dtype, device=u.device)
+
+
+def zc_smooth_mean_3d_plain(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` times: the two half-updates, then ``u - mean``."""
+    count_plain(zc_smooth_mean_3d_plain, u)
+    for _ in range(int(nsweeps)):
+        u = stencils.red_black(u, rhs, dq, bcs)
+        u = u - _global_mean(u)
+    return u
+
+
+for _f in (zc_smooth_3d_plain, zc_smooth_residual_3d_plain, zc_smooth_cor_3d_plain,
+           zc_smooth_mean_3d_plain):
     _f.plain_cuda_calls = 0
 
 
@@ -151,7 +197,7 @@ def _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps: int, what: str) -> torch.Tensor:
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = lib.ndsm_rb_half_oop_f32(
-            u.data_ptr(), None if cor is None else cor.data_ptr(),
+            u.data_ptr(), None if cor is None else cor.data_ptr(), None,
             rhs.data_ptr(), out.data_ptr(), nz, ny, nx, red, dmask,
             wz, wy, wx, w0, stream,
         )
@@ -164,6 +210,46 @@ def _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps: int, what: str) -> torch.Tensor:
             )
             cuda_build.check(rc, what)
     return out
+
+
+def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """4*nsweeps + 1 launches: per sweep an out-of-place half-sweep that
+    subtracts the previous mean on load, an in-place half-sweep and the
+    two reduction passes into the device scalar ``m``; at the end the last
+    mean is subtracted in place."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nz, ny, nx = (int(s) for s in u.shape)
+    n = u.numel()
+    nblocks = mean_blocks(n)
+    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
+    red = stencils.first_color_parity(bcs)
+    bufs = [torch.empty_like(u) for _ in range(min(2, int(nsweeps)))]
+    parts = torch.empty(nblocks, dtype=torch.float32, device=u.device)
+    m = torch.empty(1, dtype=torch.float32, device=u.device)
+    nf = float(np.float32(n))
+    src, sub = u, None
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        for k in range(int(nsweeps)):
+            dst = bufs[k % 2]
+            rcs = (
+                lib.ndsm_rb_half_oop_f32(
+                    src.data_ptr(), None, sub, rhs.data_ptr(), dst.data_ptr(),
+                    nz, ny, nx, red, 0, wz, wy, wx, w0, stream),
+                lib.ndsm_rb_half_inplace_f32(
+                    dst.data_ptr(), rhs.data_ptr(), nz, ny, nx, 1 - red, 0,
+                    wz, wy, wx, w0, stream),
+                lib.ndsm_sum_partials_f32(dst.data_ptr(), n, parts.data_ptr(), nblocks, stream),
+                lib.ndsm_sum_final_f32(parts.data_ptr(), nblocks, nf, m.data_ptr(), stream),
+            )
+            for rc in rcs:
+                cuda_build.check(rc, "zc_smooth_mean_3d")
+            src, sub = dst, m.data_ptr()
+        cuda_build.check(lib.ndsm_sub_scalar_f32(src.data_ptr(), m.data_ptr(), n, stream),
+                         "zc_smooth_mean_3d")
+    return src
 
 
 def _residual_cuda(u, rhs, dq, bcs, what: str) -> torch.Tensor:
@@ -226,6 +312,20 @@ def zc_smooth_cor_3d(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     return out
 
 
-for _f in (zc_smooth_3d, zc_smooth_residual_3d, zc_smooth_cor_3d):
+def zc_smooth_mean_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` sweeps of an all-Neumann level, each followed by the
+    subtraction of the global mean (float32, 3D).  Replaces
+    ndsm_tpu/ops/pallas_zc.py:zc_smooth_mean_3d together with the JAX
+    engine's composition of its passes (mg/engine.py:_t_smooth_zc_mean)."""
+    check_level("zc_smooth_mean_3d", (u, rhs), torch.float32)
+    bcs = _check_config("zc_smooth_mean_3d", dq, bcs, nsweeps, all_neumann=True)
+    if u.device.type == "cpu":
+        return zc_smooth_mean_3d_plain(u, rhs, dq, bcs, nsweeps)
+    out = _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps)
+    zc_smooth_mean_3d.launches += 1
+    return out
+
+
+for _f in (zc_smooth_3d, zc_smooth_residual_3d, zc_smooth_cor_3d, zc_smooth_mean_3d):
     _f.launches = 0
 del _f

@@ -46,6 +46,9 @@ _SUB = "compute_vector_potential"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
+#: torch.profiler range around the chi phase (synchronised at its end).
+CHI_RANGE = "ndsm.chi_phase"
+
 
 def _dbg(options: Options, msg: str) -> None:
     if options.debug:
@@ -239,19 +242,22 @@ def compute_vector_potential(
         d1, d2 = F.FACE_DIMS[f]
         hierarchy = GridHierarchy.from_mesh((mesh_xyz[d2], mesh_xyz[d1]))
         groups.setdefault(hierarchy, []).append(f)
-    for hierarchy, faces_in_group in groups.items():
-        rhss = [chi_rhs[f] for f in faces_in_group]
-        u0s = [torch.zeros_like(r) for r in rhss]
-        bvp = get_poisson_bvp(hierarchy, (("N", "N"), ("N", "N")), options, device=dev)
-        us, infos = bvp.solve_batch(
-            u0s, rhss, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
-            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
-            names=[f"chi_face{f}" for f in faces_in_group],
-        )
-        for k, f in enumerate(faces_in_group):
-            chi[f] = us[k]
-            chi_info[f] = infos[k]
-    _mark("chi")
+    # The named range lets a torch.profiler trace attribute device work and
+    # launches to this phase (chip_smoke.py reads it).
+    with torch.profiler.record_function(CHI_RANGE):
+        for hierarchy, faces_in_group in groups.items():
+            rhss = [chi_rhs[f] for f in faces_in_group]
+            u0s = [torch.zeros_like(r) for r in rhss]
+            bvp = get_poisson_bvp(hierarchy, (("N", "N"), ("N", "N")), options, device=dev)
+            us, infos = bvp.solve_batch(
+                u0s, rhss, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+                ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+                names=[f"chi_face{f}" for f in faces_in_group],
+            )
+            for k, f in enumerate(faces_in_group):
+                chi[f] = us[k]
+                chi_info[f] = infos[k]
+        _mark("chi")
 
     # ---- At = -grad(chi) x n (:387-399, 977-1031)
     _dbg(options, "Compute vector potential boundary conditions...")

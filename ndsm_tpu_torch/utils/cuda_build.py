@@ -3,9 +3,11 @@
 The kernels live in ``ndsm_tpu_torch/csrc`` and are compiled at first use,
 from those sources only, with ``nvcc`` into a shared library with a plain
 C interface that is loaded through ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library goes to ``ndsm_tpu_torch/_build/<key>/``
-where the key hashes the sources and the compiler flags; a file lock
-serialises concurrent builders (test workers, several processes).
+build takes seconds).  Each ``.cu`` file is compiled by its own ``nvcc``,
+all started together, then one more links them.  The library goes to
+``ndsm_tpu_torch/_build/<key>/`` where the key hashes the sources and the
+compiler flags; a file lock serialises concurrent builds (test workers,
+several processes).
 
 Nothing here runs at import.  ``kernels()`` raises when ``nvcc`` is
 missing or the build fails; there is no fallback.
@@ -32,18 +34,24 @@ LIB_NAME = "libndsm_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 #: argtypes of every C entry point (restype is c_int for all).
 _SIGNATURES = {
     "ndsm_rb_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "ndsm_rb_half_oop_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "ndsm_rb_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "ndsm_sum_partials_f32": (_P, _L, _P, _I, _P),
+    "ndsm_sum_final_f32": (_P, _I, _F, _P, _P),
+    "ndsm_sub_scalar_f32": (_P, _P, _L, _P),
+    "ndsm_v2d_smooth_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _F, _P),
     "ndsm_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "ndsm_defect_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
     "ndsm_defect_blocks": (_I, _I, _I),
@@ -95,17 +103,35 @@ def _build(out_dir: Path) -> Path:
                 return lib
             nvcc = find_nvcc()
             tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-            cmd += [str(f) for f in sorted(CSRC.glob("*.cu"))]
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                objs.append(str(obj))
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            log = []
+            for cmd, proc in procs:
+                out, err = proc.communicate()
+                log.append(" ".join(cmd) + "\n" + out + err)
+                if proc.returncode != 0:
+                    for _, other in procs:
+                        other.wait()
+                    raise RuntimeError(
+                        f"nvcc failed (exit {proc.returncode}) building the port's "
+                        f"kernels:\n{err[-4000:]}"
+                    )
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            (out_dir / "build.log").write_text("\n".join(log))
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}) building the port's "
+                    f"nvcc failed (exit {proc.returncode}) linking the port's "
                     f"kernels:\n{proc.stderr[-4000:]}"
                 )
+            for obj in objs:
+                os.remove(obj)
             os.replace(tmp, lib)
             return lib
         finally:

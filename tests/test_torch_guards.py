@@ -82,6 +82,22 @@ def test_cuda_device_raises_without_card():
         ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cuda")
 
 
+def test_poisson_bvp_defaults_to_the_card():
+    """PoissonBVP and get_poisson_bvp run on the card unless the caller
+    asks for the CPU: with no device argument they raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from ndsm_tpu_torch.mg.poisson import get_poisson_bvp
+
+    x = np.linspace(0, 1, 8)
+    h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ndsm_tpu_torch.PoissonBVP(h, (("N", "N"),) * 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_poisson_bvp(h, (("N", "N"),) * 2)
+    assert ndsm_tpu_torch.PoissonBVP(h, (("N", "N"),) * 2, device="cpu").device.type == "cpu"
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     if any(pathlib.Path(p, "nvcc").exists() for p in ("/usr/local/cuda/bin",)):
         pytest.skip("this host has nvcc in the default location")

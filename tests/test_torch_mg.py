@@ -148,7 +148,8 @@ def test_ncycles_max_zero_returns_u0():
     u0, rhs = rng.standard_normal((2,) + shape)
     _, ht = _hierarchies(shape)
     bt = ndsm_tpu_torch.PoissonBVP(ht, bcs, ndsm_tpu_torch.Options(precision="mixed",
-                                                                   ncycles_max=0))
+                                                                   ncycles_max=0),
+                                   device="cpu")
     assert bt.df_defect
     u, info = bt.solve(u0, rhs)
     assert info.cycles == 0 and info.ierr == ndsm_tpu_torch.IERR_COVFAIL
