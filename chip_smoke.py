@@ -12,17 +12,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      events, warm, median of 7, plain-kernel-kernel-plain):
        - the 3D smoothers and the defect at the main path's 220^3 and
          110^3 levels (float64 for the defect), three component BC sets;
+       - the one-lane calls of the lane kernels (zc_smooth_3d, which is
+         also fused_smooth_3d, and the residual and correction forms) at
+         the odd-nz shapes: path 1b's 55^3 level and 221x220x220;
+       - the lane kernels (the three lane forms on the three component
+         lanes stacked, at 220^3 and 110^3), also against three per-lane
+         zc kernel calls and with the Az lane frozen;
        - the 2D smoother (v2d) on six 220^2 and six 512^2 lanes (the chi
          faces of 220^3 and 512^3), all-Neumann and mixed BCs;
        - the all-Neumann 3D smoother at 220^3 and 256^3.
-  3. path 1, the main path: ``vector_potential`` in mixed precision on the
-     analytic potential-field case at 22^3 and 220^3, checked against the
-     golden rows (bench.py's gate: |err - golden| < 2e-3 golden); the
+  3. path 1, the main path: ``vector_potential`` in mixed precision with
+     default options (the three component solves batched on the card) on
+     the analytic potential-field case at 22^3 and 220^3, checked against
+     the golden rows (bench.py's gate: |err - golden| < 2e-3 golden); the
      launch counters are zeroed before the warm 220^3 run and every kernel
-     of the path (the 3D smoothers, the defect, the three v2d forms) must
-     have launched during it, with no plain version run on the card.  One
-     more 220^3 run under torch.profiler gives the device busy time, the
-     kernels that take it, and the chi phase's launches and idle share.
+     of the path (the three lane forms, the defect, the three v2d forms)
+     must have launched during it, with no plain version run on the card.
+     One more 220^3 run under torch.profiler gives the device busy time,
+     the kernels that take it, and the chi phase's launches and idle share.
+     Path 1b: the same 220^3 case with ``batch_components="off"`` (the
+     components one after the other: the one-lane 3D smoothers and the
+     defect), golden-checked, counted, and held to path 1: per-component
+     cycles within 1, max|A_on - A_off| <= 5e-9.  Each route runs three
+     times warm without the profiler (once counted, twice in turns).
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
@@ -63,6 +75,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
 
+# Names of one wrapper: fused_smooth_3d is zc_smooth_3d (ops/fused.py).
+ALIASES = {"zc_smooth_3d": ("fused_smooth_3d",)}
+
 # Work of one call per point, at ns sweeps: (bytes, operations, peak).
 # Bytes count each input read once and each output written once; the
 # operations are the update's adds and multiplies (10 a point-sweep in
@@ -77,6 +92,10 @@ WORK = {
     "v2d_smooth": lambda ns: (12, 9 * ns, PEAK_F32),
     "v2d_smooth_residual": lambda ns: (16, 9 * ns + 9, PEAK_F32),
     "v2d_smooth_cor": lambda ns: (16, 9 * ns + 1, PEAK_F32),
+    "fused_smooth_3d_batched": lambda ns: (12, 10 * ns, PEAK_F32),  # per lane
+    "fused_smooth_residual_3d_batched": lambda ns: (16, 10 * ns + 13, PEAK_F32),
+    "fused_smooth_cor_3d_batched": lambda ns: (16, 10 * ns + 1, PEAK_F32),
+    "fused_smooth_3d": lambda ns: (12, 10 * ns, PEAK_F32),
 }
 
 
@@ -141,9 +160,10 @@ class Stats:
         self.s = {}
 
     def note(self, key, err, ulp):
-        st = self.s.setdefault(key, {"err": 0.0, "ulp": 0.0})
-        st["err"] = max(st["err"], err)
-        st["ulp"] = max(st["ulp"], ulp)
+        for k in (key,) + ALIASES.get(key, ()):
+            st = self.s.setdefault(k, {"err": 0.0, "ulp": 0.0})
+            st["err"] = max(st["err"], err)
+            st["ulp"] = max(st["ulp"], ulp)
 
     def timed(self, key, kern, plain, points, ns, label, headline):
         kms, pms = time_pair(kern, plain)
@@ -151,7 +171,8 @@ class Stats:
         log(f"[time] {key:22s} {label}: kernel {kms:.4f} ms  plain {pms:.4f} ms  bound "
             f"{bms:.4f} ms ({by}; {100 * bms / kms:.1f}% of it)")
         if headline:
-            self.s[key].update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            for k in (key,) + ALIASES.get(key, ()):
+                self.s[k].update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
 
 
 def phase_device():
@@ -173,6 +194,14 @@ def phase_device():
     cuda_build.kernels()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc per source, in parallel; {' '.join(cuda_build.NVCC_FLAGS)})")
+    # ptxas's resource lines for every kernel (registers, stack, spills)
+    entry = None
+    for line in (cuda_build.build_dir() / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("stack frame" in line or "Used" in line):
+            log(f"[build] {entry[:60]}: {line.split(':', 1)[-1].strip()}")
+            entry = entry if "stack frame" in line else None
     return name, smi
 
 
@@ -182,7 +211,7 @@ def phase_kernels(stats: Stats):
     import torch
 
     from ndsm_tpu_torch.grids import GridHierarchy
-    from ndsm_tpu_torch.ops import df, v2d, zc
+    from ndsm_tpu_torch.ops import df, fused, v2d, zc
     from ndsm_tpu_torch.utils.testing import build_test_mesh
 
     dev = torch.device("cuda")
@@ -246,6 +275,108 @@ def phase_kernels(stats: Stats):
             stats.timed("df_residual_3d", lambda: df.df_residual_3d(u64, None, e32, dq, bcs),
                         lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
                         pts, 1, f"{n}^3 {tag} zero-rhs+update", head)
+
+    # -- the one-lane calls at odd nz: path 1b's 55^3 level, and the shape
+    # class the JAX package sends to fused_smooth_3d (221 x 220 x 220)
+    for shape, dq in ((h.shapes[2], h.dq[2]), ((221, 220, 220), h.dq[0])):
+        for tag, bcs in BC_SETS.items():
+            u, rhs, cor = f32(shape), f32(shape), f32(shape)
+            for ns in SWEEPS:
+                lab = f"{'x'.join(map(str, shape))} {tag} ns={ns}"
+                stats.note("zc_smooth_3d", *compare(
+                    f"zc_smooth_3d {lab}", zc.zc_smooth_3d(u, rhs, dq, bcs, ns),
+                    zc.zc_smooth_3d_plain(u, rhs, dq, bcs, ns)))
+                got = zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ns)
+                want = zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, ns)
+                for part, g, w in zip(("u", "r"), got, want):
+                    stats.note("zc_smooth_residual_3d", *compare(
+                        f"zc_smooth_residual_3d({part}) {lab}", g, w))
+                stats.note("zc_smooth_cor_3d", *compare(
+                    f"zc_smooth_cor_3d {lab}", zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ns),
+                    zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, ns)))
+        log(f"[kernels] {shape}: one-lane calls (zc_smooth_3d = fused_smooth_3d, residual, "
+            f"correction) bitwise equal to their plain versions (three BC sets, ns in {SWEEPS})")
+        del u, rhs, cor
+
+    # -- the lane kernels: the three component lanes of the batched solve
+    lanes = tuple(BC_SETS.values())
+    frozen = (True, True, False)  # Az stops first on the main path
+    for level in (0, 1):
+        shape, dq = h.shapes[level], h.dq[level]
+        n = shape[0]
+        pts = 3 * int(np.prod(shape))
+        u, rhs, cor = f32((3,) + shape), f32((3,) + shape), f32((3,) + shape)
+        for ns in SWEEPS:
+            lab = f"{n}^3 x3 ns={ns}"
+            full = {
+                "fused_smooth_3d_batched":
+                    (fused.fused_smooth_3d_batched(u, rhs, dq, lanes, ns),
+                     fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, ns),
+                     [zc.zc_smooth_3d(u[b], rhs[b], dq, bc, ns) for b, bc in enumerate(lanes)]),
+                "fused_smooth_residual_3d_batched":
+                    (fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, ns),
+                     fused.fused_smooth_residual_3d_batched_plain(u, rhs, dq, lanes, ns),
+                     [zc.zc_smooth_residual_3d(u[b], rhs[b], dq, bc, ns)
+                      for b, bc in enumerate(lanes)]),
+                "fused_smooth_cor_3d_batched":
+                    (fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, ns),
+                     fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, ns),
+                     [zc.zc_smooth_cor_3d(u[b], cor[b], rhs[b], dq, bc, ns)
+                      for b, bc in enumerate(lanes)]),
+            }
+            part = {
+                "fused_smooth_3d_batched":
+                    fused.fused_smooth_3d_batched(u, rhs, dq, lanes, ns, frozen),
+                "fused_smooth_residual_3d_batched":
+                    fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, ns, frozen),
+                "fused_smooth_cor_3d_batched":
+                    fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, ns, frozen),
+            }
+            for key, (got, want, per_lane) in full.items():
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                for part_name, g, w in zip(("u", "r"), got, want):
+                    stats.note(key, *compare(f"{key}({part_name}) {lab}", g, w))
+                for b in range(3):
+                    zb = per_lane[b] if isinstance(per_lane[b], tuple) else (per_lane[b],)
+                    for part_name, g, w in zip(("u", "r"), got, zb):
+                        stats.note(key, *compare(
+                            f"{key}({part_name}) {lab} lane {b} vs the zc kernel", g[b], w))
+                pg = part[key] if isinstance(part[key], tuple) else (part[key],)
+                for b, on in enumerate(frozen):
+                    for part_name, g, w in zip(("u", "r"), pg, got):
+                        if on:
+                            want_b = w[b]
+                        else:  # a frozen lane: u unchanged, zero residual
+                            want_b = u[b] if part_name == "u" else torch.zeros_like(u[b])
+                        stats.note(key, *compare(
+                            f"{key}({part_name}) {lab} Az frozen, lane {b}", g[b], want_b))
+            del full, part
+        log(f"[kernels] {n}^3 x3 lanes: lane forms bitwise equal to their plain versions "
+            f"and to per-lane zc kernels, all lanes active and Az frozen (ns in {SWEEPS})")
+        head = n == 220
+        lab = f"{n}^3 x3 ns={MS}"
+        stats.timed("fused_smooth_3d_batched",
+                    lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS),
+                    lambda: fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, MS),
+                    pts, MS, lab, head)
+        stats.timed("fused_smooth_residual_3d_batched",
+                    lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS),
+                    lambda: fused.fused_smooth_residual_3d_batched_plain(u, rhs, dq, lanes, MS),
+                    pts, MS, lab, head)
+        stats.timed("fused_smooth_cor_3d_batched",
+                    lambda: fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, MS),
+                    lambda: fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, MS),
+                    pts, MS, lab, head)
+        # the lane call beside the three per-lane calls it replaces
+        lms, zms = time_pair(
+            lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS),
+            lambda: [zc.zc_smooth_residual_3d(u[b], rhs[b], dq, bc, MS)
+                     for b, bc in enumerate(lanes)])
+        fms = time_ms(lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS,
+                                                                     frozen))
+        log(f"[time] lane residual form {lab}: one lane call {lms:.4f} ms, three per-lane "
+            f"zc calls {zms:.4f} ms, Az frozen {fms:.4f} ms")
+        del u, rhs, cor
 
     # -- v2d: six lanes of the chi faces of 220^3 and 512^3
     for n in (220, 512):
@@ -323,8 +454,11 @@ def check_counts(what: str, launches: dict, plain: dict, need) -> None:
         raise AssertionError(f"{what}: plain versions ran on CUDA tensors: {plain}")
 
 
-PATH1 = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d",
+PATH1 = ("fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
+         "fused_smooth_cor_3d_batched", "df_residual_3d",
          "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+PATH1B = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d",
+          "fused_smooth_3d", "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
 PATH2 = ("zc_smooth_mean_3d",)
 
 
@@ -332,17 +466,23 @@ def phase_main_path():
     import numpy as np
     import torch
 
-    from ndsm_tpu_torch import ops, vector_potential
-    from ndsm_tpu_torch.potential.vector_potential import CHI_RANGE
+    from ndsm_tpu_torch import Options, ops, vector_potential
+    from ndsm_tpu_torch.potential.vector_potential import CHI_RANGE, SOLVE3D_RANGE
     from ndsm_tpu_torch.utils.testing import build_test_mesh, potential_field_case
 
-    def run(n):
-        x, y, z = build_test_mesh(n)
-        Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
-        A1, b1 = potential_field_case(X, Y, Z)
+    cases = {}
+
+    def run(n, batch="auto"):
+        if n not in cases:  # the analytic case, built once per size on the host
+            x, y, z = build_test_mesh(n)
+            Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
+            cases[n] = (x, y, z) + potential_field_case(X, Y, Z)
+            del Z, Y, X
+        x, y, z, A1, b1 = cases[n]
         t0 = time.perf_counter()
         ierr, A2, B2, info = vector_potential(
-            x, y, z, b1, precision="mixed", device="cuda", full_output=True)
+            x, y, z, b1, options=Options(precision="mixed", batch_components=batch),
+            device="cuda", full_output=True)
         wall = time.perf_counter() - t0
         if ierr != 0:
             raise AssertionError(f"vector_potential {n}^3: ierr={ierr}")
@@ -356,62 +496,107 @@ def phase_main_path():
         ok = abs(ea - g_ea) < GATE * g_ea and abs(eb - g_eb) < GATE * g_eb
         cyc = " ".join(f"{s.name}={s.cycles}" for s in info.chi + info.components)
         phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
-        log(f"[main] {n}^3 mixed: Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max {eb:.5e} "
-            f"(golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}")
-        log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}")
+        route = f"batch_components={batch}, lanes {info.components[0].batch_size}"
+        log(f"[main] {n}^3 mixed ({route}): Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max "
+            f"{eb:.5e} (golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}")
+        log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}; component "
+            "du " + " ".join(f"{s.name}={s.du_last:.6e}" for s in info.components))
         if not ok:
             raise AssertionError(f"vector_potential {n}^3 outside the golden gate")
-        return wall, info
+        want = 3 if batch == "auto" else 1
+        if any(s.batch_size != want for s in info.components):
+            raise AssertionError(f"{n}^3 {route}: expected {want} lane(s) per component solve")
+        return wall, info, A2, B2
 
     run(22)
     run(220)  # cold: first use of the 220^3 engines
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    wall, info = run(220)
+    wall, info, A_on, B_on = run(220)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_counts("main 220^3 warm", launches, ops.plain_cuda_counts(), PATH1)
-    log(f"[main] 220^3 warm: chi phase {info.phases['chi']:.4f} s; peak device memory "
+    log(f"[main] 220^3 warm: chi phase {info.phases['chi']:.4f} s; solve3d "
+        f"{info.phases['solve3d']:.4f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    # Where the time goes: one more warm 220^3 run under torch.profiler.
-    # Device busy time = the summed durations of device-side events
-    # (kernels and copies); CPU ops are left out, they would count their
-    # kernels twice.  The chi phase is the events inside its named range.
+    # Path 1b: the components one after the other, held to path 1.
+    run(220, "off")  # cold: first use of the sequential engines
+    ops.reset_launch_counts()
+    wall_b, info_b, A_off, B_off = run(220, "off")
+    torch.cuda.synchronize()
+    launches_b = ops.launch_counts()
+    check_counts("main 220^3 warm, batch_components=off", launches_b, ops.plain_cuda_counts(),
+                 PATH1B)
+    da = float(np.abs(A_on - A_off).max())
+    db = float(np.abs(B_on - B_off).max())
+    del A_on, B_on, A_off, B_off
+    log(f"[main] 220^3 batched vs one after the other: wall {wall:.4f} / {wall_b:.4f} s, "
+        f"solve3d {info.phases['solve3d']:.4f} / {info_b.phases['solve3d']:.4f} s; "
+        f"max|A_on - A_off| {da:.3e}, max|B_on - B_off| {db:.3e}")
+    for s_on, s_off in zip(info.components, info_b.components):
+        log(f"[main]   {s_on.name}: cycles {s_on.cycles} / {s_off.cycles}, du "
+            f"{s_on.du_last:.6e} / {s_off.du_last:.6e}")
+        if abs(s_on.cycles - s_off.cycles) > 1:
+            raise AssertionError(f"{s_on.name}: cycles differ by more than 1 between routes")
+    if not da <= 5e-9:
+        raise AssertionError(f"max|A_on - A_off| = {da} > 5e-9")
+    # The two routes in turns (warm; host clock, so repeated): solve3d, wall.
+    turns = {"auto": [], "off": []}
+    for batch in ("auto", "off", "off", "auto"):
+        w, inf, _, _ = run(220, batch)
+        turns[batch].append((inf.phases["solve3d"], w))
+    for batch, tv in turns.items():
+        log(f"[main] 220^3 batch_components={batch} in turns: solve3d "
+            + " ".join(f"{t[0]:.4f}" for t in tv) + " s; wall "
+            + " ".join(f"{t[1]:.4f}" for t in tv) + " s")
+
+    # Where the time goes: one more warm 220^3 run of each route under
+    # torch.profiler.  Device busy time = the summed durations of device-side
+    # events (kernels and copies); CPU ops are left out, they would count
+    # their kernels twice.  A phase is the events inside its named range.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pwall, pinfo = run(220)
-    # (the chi range also appears as a device-side annotation: not a kernel)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0 and e.key != CHI_RANGE]
-    if not dev:
-        raise AssertionError("the profiler recorded no device events")
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    launched = sum(e.count for e in dev)
-    log(f"[profile] 220^3: device busy {busy:.4f} s, {launched} device events; wall "
-        f"{pwall:.4f} s under the profiler (idle share {1.0 - busy / pwall:.3f}), "
-        f"{wall:.4f} s without it (idle share {1.0 - busy / wall:.3f}); top device time:")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:100]}")
-    events = prof.events()
-    rng = [e for e in events if e.name == CHI_RANGE and e.device_type == DeviceType.CPU]
-    if len(rng) != 1:
-        raise AssertionError(f"expected one {CHI_RANGE} range in the trace, got {len(rng)}")
-    lo, hi = rng[0].time_range.start, rng[0].time_range.end
-    chi_dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name != CHI_RANGE and lo <= e.time_range.start <= hi]
-    chi_busy = sum(e.time_range.elapsed_us() for e in chi_dev) / 1e6
-    chi_wall = (hi - lo) / 1e6
-    by_name = {}
-    for e in chi_dev:
-        by_name[e.name] = by_name.get(e.name, 0) + 1
-    top = ", ".join(f"{k[:40]} x{v}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    log(f"[profile] chi phase: {len(chi_dev)} device events, device busy {chi_busy:.4f} s of "
-        f"{chi_wall:.4f} s (idle share {1.0 - chi_busy / chi_wall:.3f}); cycles "
-        + " ".join(f"{s.name}={s.cycles}" for s in pinfo.chi) + f"; most launched: {top}")
-    return launches
+    for batch in ("auto", "off"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pwall, pinfo, _, _ = run(220, batch)
+        # (the ranges also appear as device-side annotations: not kernels)
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key not in (CHI_RANGE, SOLVE3D_RANGE)]
+        if not dev:
+            raise AssertionError("the profiler recorded no device events")
+        busy = sum(e.self_device_time_total for e in dev) / 1e6
+        launched = sum(e.count for e in dev)
+        uwall = wall if batch == "auto" else wall_b
+        log(f"[profile] 220^3 batch_components={batch}: device busy {busy:.4f} s, {launched} "
+            f"device events; wall {pwall:.4f} s under the profiler (idle share "
+            f"{1.0 - busy / pwall:.3f}), {uwall:.4f} s without it (idle share "
+            f"{1.0 - busy / uwall:.3f}); top device time:")
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} "
+                f"{e.key[:100]}")
+        events = prof.events()
+        for name, cyc in ((CHI_RANGE, pinfo.chi), (SOLVE3D_RANGE, pinfo.components)):
+            rng = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
+            if len(rng) != 1:
+                raise AssertionError(f"expected one {name} range in the trace, got {len(rng)}")
+            lo, hi = rng[0].time_range.start, rng[0].time_range.end
+            in_rng = [e for e in events if e.device_type == DeviceType.CUDA
+                      and e.name not in (CHI_RANGE, SOLVE3D_RANGE)
+                      and lo <= e.time_range.start <= hi]
+            r_busy = sum(e.time_range.elapsed_us() for e in in_rng) / 1e6
+            r_wall = (hi - lo) / 1e6
+            by_name = {}
+            for e in in_rng:
+                by_name[e.name] = by_name.get(e.name, 0) + 1
+            top = ", ".join(f"{k[:40]} x{v}" for k, v in
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+            log(f"[profile] {name} ({batch}): {len(in_rng)} device events, device busy "
+                f"{r_busy:.4f} s of {r_wall:.4f} s (idle share {1.0 - r_busy / r_wall:.3f}); "
+                "cycles " + " ".join(f"{s.name}={s.cycles}" for s in cyc)
+                + f"; most launched: {top}")
+    return launches, launches_b
 
 
 def phase_neumann_3d():
@@ -471,26 +656,30 @@ def main() -> int:
     name, _ = phase_device()
     stats = Stats()
     phase_kernels(stats)
-    path1 = phase_main_path()
+    path1, path1b = phase_main_path()
     path2 = phase_neumann_3d()
+    paths = (
+        (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
+        (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
+        (PATH2, path2, "all-Neumann 3D solve 256^3"),
+    )
     kernels = []
-    for wrapper, _, replaces, source in ops.KERNELS:
-        key = wrapper.__name__
+    for key, _, _, replaces, source in ops.KERNELS:
         st = stats.s[key]
-        on1 = key in PATH1
+        _, counts, path = next(p for p in paths if key in p[0])
         kernels.append({
             "name": key,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": (path1 if on1 else path2)[key],
+            "launches": counts[key],
             "max_abs_err": st["err"],
             "ms": st["ms"],
             "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],
             "library_ms": None,
-            "path": "vector_potential 220^3 mixed" if on1 else "all-Neumann 3D solve 256^3",
+            "path": path,
         })
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,7 +19,9 @@ from .options import (
     VectorPotentialInfo,
 )
 from .grids import GridHierarchy, coarsen_shape, num_grids
+from .mg.batched import MultiBCSolver
 from .mg.poisson import PoissonBVP
+from .ops.fused import fused_smooth_3d
 from .potential.vector_potential import compute_vector_potential
 from .api import vector_potential
 
@@ -27,6 +29,8 @@ __all__ = [
     "vector_potential",
     "compute_vector_potential",
     "PoissonBVP",
+    "MultiBCSolver",
+    "fused_smooth_3d",
     "GridHierarchy",
     "Options",
     "SolveInfo",

@@ -7,7 +7,13 @@ counters, ``plain_cuda_counts`` the number of times a plain version ran on
 a CUDA tensor.
 """
 
-from . import df, v2d, zc
+from . import df, fused, v2d, zc
+from .fused import (
+    fused_smooth_3d,
+    fused_smooth_3d_batched,
+    fused_smooth_cor_3d_batched,
+    fused_smooth_residual_3d_batched,
+)
 from .stencils import (
     first_color_parity,
     poisson_residual,
@@ -20,35 +26,52 @@ from .transfer import apply_axis_matrices, interp_matrix_1d, restrict_matrix_1d
 
 _ZC = "ndsm_tpu_torch/csrc/zc_smooth.cu"
 _V2D = "ndsm_tpu_torch/csrc/v2d_smooth.cu"
+_FUSED = "ndsm_tpu_torch/csrc/fused_smooth.cu"
 
-#: (wrapper, plain version, replaced TPU kernel, CUDA source)
+#: (name, wrapper, plain version, replaced TPU kernel, CUDA source).  The
+#: 3D red-black wrappers are calls of one lane kernel family (B lanes or
+#: one); "fused_smooth_3d" and "zc_smooth_3d" are one wrapper, which ports
+#: both TPU kernels, so they share its launch counter.
 KERNELS = (
-    (zc.zc_smooth_3d, zc.zc_smooth_3d_plain, "ndsm_tpu/ops/pallas_zc.py:740", _ZC),
-    (zc.zc_smooth_residual_3d, zc.zc_smooth_residual_3d_plain,
-     "ndsm_tpu/ops/pallas_zc.py:825", _ZC),
-    (zc.zc_smooth_cor_3d, zc.zc_smooth_cor_3d_plain, "ndsm_tpu/ops/pallas_zc.py:796", _ZC),
-    (df.df_residual_3d, df.df_residual_3d_plain, "ndsm_tpu/ops/pallas_df.py:520",
-     "ndsm_tpu_torch/csrc/defect.cu"),
-    (zc.zc_smooth_mean_3d, zc.zc_smooth_mean_3d_plain, "ndsm_tpu/ops/pallas_zc.py:766", _ZC),
-    (v2d.v2d_smooth, v2d.v2d_smooth_plain, "ndsm_tpu/ops/pallas_v2d.py:451", _V2D),
-    (v2d.v2d_smooth_residual, v2d.v2d_smooth_residual_plain,
+    ("zc_smooth_3d", zc.zc_smooth_3d, zc.zc_smooth_3d_plain,
+     "ndsm_tpu/ops/pallas_zc.py:740", _FUSED),
+    ("zc_smooth_residual_3d", zc.zc_smooth_residual_3d, zc.zc_smooth_residual_3d_plain,
+     "ndsm_tpu/ops/pallas_zc.py:825", _FUSED),
+    ("zc_smooth_cor_3d", zc.zc_smooth_cor_3d, zc.zc_smooth_cor_3d_plain,
+     "ndsm_tpu/ops/pallas_zc.py:796", _FUSED),
+    ("df_residual_3d", df.df_residual_3d, df.df_residual_3d_plain,
+     "ndsm_tpu/ops/pallas_df.py:520", "ndsm_tpu_torch/csrc/defect.cu"),
+    ("zc_smooth_mean_3d", zc.zc_smooth_mean_3d, zc.zc_smooth_mean_3d_plain,
+     "ndsm_tpu/ops/pallas_zc.py:766", _ZC),
+    ("v2d_smooth", v2d.v2d_smooth, v2d.v2d_smooth_plain, "ndsm_tpu/ops/pallas_v2d.py:451",
+     _V2D),
+    ("v2d_smooth_residual", v2d.v2d_smooth_residual, v2d.v2d_smooth_residual_plain,
      "ndsm_tpu/ops/pallas_v2d.py:463", _V2D),
-    (v2d.v2d_smooth_cor, v2d.v2d_smooth_cor_plain, "ndsm_tpu/ops/pallas_v2d.py:475", _V2D),
+    ("v2d_smooth_cor", v2d.v2d_smooth_cor, v2d.v2d_smooth_cor_plain,
+     "ndsm_tpu/ops/pallas_v2d.py:475", _V2D),
+    ("fused_smooth_3d_batched", fused.fused_smooth_3d_batched,
+     fused.fused_smooth_3d_batched_plain, "ndsm_tpu/ops/pallas_fused.py:405", _FUSED),
+    ("fused_smooth_residual_3d_batched", fused.fused_smooth_residual_3d_batched,
+     fused.fused_smooth_residual_3d_batched_plain, "ndsm_tpu/ops/pallas_fused.py:405", _FUSED),
+    ("fused_smooth_cor_3d_batched", fused.fused_smooth_cor_3d_batched,
+     fused.fused_smooth_cor_3d_batched_plain, "ndsm_tpu/ops/pallas_fused.py:405", _FUSED),
+    ("fused_smooth_3d", fused.fused_smooth_3d, fused.fused_smooth_3d_plain,
+     "ndsm_tpu/ops/pallas_fused.py:319", _FUSED),
 )
 
 
 def launch_counts() -> dict:
-    return {k[0].__name__: k[0].launches for k in KERNELS}
+    return {k[0]: k[1].launches for k in KERNELS}
 
 
 def plain_cuda_counts() -> dict:
-    return {k[1].__name__: k[1].plain_cuda_calls for k in KERNELS}
+    return {k[2].__name__: k[2].plain_cuda_calls for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k[0].launches = 0
-        k[1].plain_cuda_calls = 0
+        k[1].launches = 0
+        k[2].plain_cuda_calls = 0
 
 
 __all__ = [
@@ -62,6 +85,10 @@ __all__ = [
     "apply_axis_matrices",
     "du_metrics",
     "trapz_2d",
+    "fused_smooth_3d",
+    "fused_smooth_3d_batched",
+    "fused_smooth_residual_3d_batched",
+    "fused_smooth_cor_3d_batched",
     "KERNELS",
     "launch_counts",
     "plain_cuda_counts",

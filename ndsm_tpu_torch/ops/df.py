@@ -11,6 +11,9 @@ and ``update`` variants).
     ``rhs=None`` the zero-rhs form;
   * ``mx = max|r32|`` as a 0-d float32 tensor on the device.
 
+With ``r32_out`` (a contiguous float32 tensor of u's shape, e.g. one lane
+of a stack) r32 is written there and returned, instead of a new tensor.
+
 Float64 throughout: the TPU kernel carried u as an f32 (hi, lo) pair only
 because f64 was emulated there; Hopper has it natively.  On a CUDA tensor
 the wrapper launches ``csrc/defect.cu`` (one launch; per-block maxima
@@ -33,7 +36,7 @@ __all__ = ["df_residual_3d", "df_residual_3d_plain"]
 
 
 def df_residual_3d_plain(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
-                         dq, bcs):
+                         dq, bcs, r32_out: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`df_residual_3d`."""
     if u.device.type == "cuda":
         df_residual_3d_plain.plain_cuda_calls += 1
@@ -42,7 +45,7 @@ def df_residual_3d_plain(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tenso
     r = stencils.poisson_residual(
         u, torch.zeros_like(u) if rhs is None else rhs, dq, bcs
     )
-    r32 = r.to(torch.float32)
+    r32 = r.to(torch.float32) if r32_out is None else r32_out.copy_(r)
     return r32, torch.max(torch.abs(r32)), u
 
 
@@ -50,26 +53,29 @@ df_residual_3d_plain.plain_cuda_calls = 0
 
 
 def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
-                   dq, bcs) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   dq, bcs, r32_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Outer defect of ``laplace(u) = rhs`` (see module docstring).
     Replaces ndsm_tpu/ops/pallas_df.py:df_residual_3d."""
     check_level("df_residual_3d", (u,) if rhs is None else (u, rhs), torch.float64)
-    if e is not None:
-        check_level("df_residual_3d", (e,), torch.float32, shape=u.shape)
-        if e.device != u.device:
-            raise ValueError("df_residual_3d: e on another device than u")
+    for t in (e, r32_out):
+        if t is not None:
+            check_level("df_residual_3d", (t,), torch.float32, shape=u.shape)
+            if t.device != u.device:
+                raise ValueError("df_residual_3d: e or r32_out on another device than u")
     bcs = stencils.validate_bcs(bcs, 3)
     if len(dq) != 3:
         raise ValueError("df_residual_3d: dq must have 3 entries")
     if u.device.type == "cpu":
-        return df_residual_3d_plain(u, rhs, e, dq, bcs)
+        return df_residual_3d_plain(u, rhs, e, dq, bcs, r32_out)
 
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nz, ny, nx = (int(s) for s in u.shape)
     (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float64)
-    r32 = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    r32 = torch.empty(u.shape, dtype=torch.float32, device=u.device) if r32_out is None \
+        else r32_out
     u_new = torch.empty_like(u) if e is not None else u
     block_max = torch.empty(
         lib.ndsm_defect_blocks(nz, ny, nx), dtype=torch.float32, device=u.device

@@ -46,8 +46,10 @@ __all__ = [
     "interior_mask",
     "color_masks",
     "red_black",
+    "masked_red_black",
     "rb_sweep",
     "poisson_residual",
+    "masked_residual",
     "subtract_mean",
 ]
 
@@ -161,14 +163,23 @@ def _half_sweep(u, rhs, w, w0, mask, nb: int):
     return torch.where(mask, unew, u)
 
 
+def masked_red_black(u: torch.Tensor, rhs: torch.Tensor, dq, first: torch.Tensor,
+                     second: torch.Tensor) -> torch.Tensor:
+    """The two half-updates of a sweep with caller-given update masks
+    (broadcastable to ``u``; per-lane masks carry per-lane BCs).  The
+    spatial axes are the last ``len(dq)``."""
+    nb = u.ndim - len(dq)
+    w, w0 = stencil_weights(dq, u.dtype)
+    u = _half_sweep(u, rhs, w, w0, first, nb)
+    return _half_sweep(u, rhs, w, w0, second, nb)
+
+
 def red_black(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
     """The two half-updates of a sweep, red then black (reading the updated
     red values), without the all-Neumann mean subtraction."""
     nb = u.ndim - len(bcs)
-    w, w0 = stencil_weights(dq, u.dtype)
     red, black = color_masks(tuple(u.shape[nb:]), bcs, u.device)
-    u = _half_sweep(u, rhs, w, w0, red, nb)
-    return _half_sweep(u, rhs, w, w0, black, nb)
+    return masked_red_black(u, rhs, dq, red, black)
 
 
 def rb_sweep(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
@@ -181,18 +192,24 @@ def rb_sweep(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
     return u
 
 
-def poisson_residual(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
-    """Residual ``r = rhs - L[u]`` with reflected-neighbor Neumann handling,
-    zero on Dirichlet faces (reference ndsm_optimized.f90:346-447).  Per
-    axis the term is ``(lo - 2u + hi) * w``, summed in axis order."""
-    ndim = len(bcs)
-    nb = u.ndim - ndim
+def masked_residual(u: torch.Tensor, rhs: torch.Tensor, dq, interior: torch.Tensor
+                    ) -> torch.Tensor:
+    """``rhs - L[u]``, zero where ``interior`` (broadcastable to ``u``) is
+    False.  Per axis the term is ``(lo - 2u + hi) * w``, summed in axis
+    order; the spatial axes are the last ``len(dq)``."""
+    nb = u.ndim - len(dq)
     w, _ = stencil_weights(dq, u.dtype)
     lap = None
-    for ax in range(ndim):
+    for ax in range(len(w)):
         lo, hi = _neighbors(u, nb + ax)
         term = (lo - 2.0 * u + hi) * w[ax]
         lap = term if lap is None else lap + term
     r = rhs - lap
-    interior = interior_mask(tuple(u.shape[nb:]), bcs, u.device)
     return r.masked_fill(~interior, 0.0)
+
+
+def poisson_residual(u: torch.Tensor, rhs: torch.Tensor, dq, bcs: BCS) -> torch.Tensor:
+    """Residual ``r = rhs - L[u]`` with reflected-neighbor Neumann handling,
+    zero on Dirichlet faces (reference ndsm_optimized.f90:346-447)."""
+    nb = u.ndim - len(bcs)
+    return masked_residual(u, rhs, dq, interior_mask(tuple(u.shape[nb:]), bcs, u.device))

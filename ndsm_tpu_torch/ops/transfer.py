@@ -91,10 +91,12 @@ def full_f32_matmul() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def apply_axis_matrices(x: torch.Tensor, mats: Sequence[torch.Tensor]) -> torch.Tensor:
+def apply_axis_matrices(x: torch.Tensor, mats: Sequence[torch.Tensor],
+                        out: torch.Tensor | None = None) -> torch.Tensor:
     """Apply one matrix per spatial axis: ``y = (M_0 ⊗ M_1 ⊗ ...) x``.
     The spatial axes are the last ``len(mats)`` axes of ``x``; leading
-    axes are lanes.  ``mats`` are tensors of ``x``'s dtype and device."""
+    axes are lanes.  ``mats`` are tensors of ``x``'s dtype and device.
+    With ``out`` (e.g. one lane of a stack) the result is written there."""
     full_f32_matmul()
     nb = x.ndim - len(mats)
     for ax, m in enumerate(mats):
@@ -102,4 +104,6 @@ def apply_axis_matrices(x: torch.Tensor, mats: Sequence[torch.Tensor]) -> torch.
         xt = x.movedim(a, 0)
         y = torch.matmul(m, xt.reshape(xt.shape[0], -1))
         x = y.reshape((m.shape[0],) + tuple(xt.shape[1:])).movedim(0, a)
-    return x.contiguous()
+    if out is None:
+        return x.contiguous()
+    return out.copy_(x)

@@ -5,9 +5,12 @@
 Each wrapper takes the level's tensors and its static configuration (dq,
 bcs, number of sweeps):
 
-  * on a CUDA tensor it launches the hand-written kernels of
-    ``csrc/zc_smooth.cu`` (built at first use) and adds one to its
-    ``launches`` count, or raises;
+  * on a CUDA tensor it launches the hand-written kernels and adds one to
+    its ``launches`` count, or raises.  The red-black half-sweeps and the
+    residual are one-lane calls of the lane kernels of
+    ``csrc/fused_smooth.cu`` (launched by :func:`sweeps_cuda` and
+    :func:`residual_cuda`, which ops/fused.py calls with B lanes); the
+    mean's reduction passes are ``csrc/zc_smooth.cu``.  Built at first use;
   * on a CPU tensor it runs its plain PyTorch version below, built from
     ops/stencils.py.
 
@@ -24,20 +27,22 @@ as in the JAX engine's ``_t_smooth_zc_mean``), the sum taken in the
 kernels' fixed order (``reduce.strided_block_sum``).  The wrappers are
 functional: inputs are never modified.
 
-Kernel design (see the source note in csrc/zc_smooth.cu): one launch per
-half-sweep, 2*nsweeps launches per call.  The first half-sweep runs out of
-place (into a new tensor, adding ``cor`` on load for the correction form),
-the rest in place on that tensor; the residual form adds one residual
-launch.  The mean form runs each sweep out of place, ping-ponging between
-two buffers: its first half-sweep subtracts the previous sweep's mean on
-load (read from a device scalar, never from the host), and two launches
-per sweep reduce the swept state into the next mean.  Unlike the TPU
-kernels there is no shape gate, no pass width and no padded storage:
-every 3D shape with extents >= 2 is taken.
+Kernel design (see the source notes in csrc/fused_smooth.cu and
+csrc/zc_smooth.cu): one launch per half-sweep, 2*nsweeps launches per
+call.  The first half-sweep runs out of place (into a new tensor, adding
+``cor`` on load for the correction form), the rest in place on that
+tensor; the residual form adds one residual launch.  The mean form runs
+each sweep out of place, ping-ponging between two buffers: its first
+half-sweep subtracts the previous sweep's mean on load (read from a device
+scalar, never from the host), and two launches per sweep reduce the swept
+state into the next mean.  Unlike the TPU kernels there is no shape gate,
+no pass width and no padded storage: every 3D shape with extents >= 2 is
+taken.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -57,6 +62,8 @@ __all__ = [
     "zc_smooth_mean_3d_plain",
     "dirichlet_mask",
     "mean_blocks",
+    "sweeps_cuda",
+    "residual_cuda",
 ]
 
 #: Most blocks of the first pass of the mean's reduction.
@@ -100,7 +107,7 @@ def check_level(name: str, tensors, dtype: torch.dtype, shape=None, ndim: int = 
         raise ValueError(f"{name}: unsupported device {t0.device}")
 
 
-def _check_config(name: str, dq, bcs, nsweeps: int, all_neumann: bool = False):
+def check_config(name: str, dq, bcs, nsweeps: int, all_neumann: bool = False):
     bcs = stencils.validate_bcs(bcs, 3)
     if stencils.is_all_neumann(bcs) != all_neumann:
         raise ValueError(
@@ -183,40 +190,71 @@ for _f in (zc_smooth_3d_plain, zc_smooth_residual_3d_plain, zc_smooth_cor_3d_pla
 # ----------------------------------------------------------------------
 
 
-def _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps: int, what: str) -> torch.Tensor:
-    """2*nsweeps half-sweep launches; the first out of place into a new
-    tensor (reading u + cor when cor is given), the rest in place on it."""
+def _lane_args(bcs_list, active):
+    """Each lane's first colour, Dirichlet mask and active flag, as the C
+    int arrays the lane kernels take."""
+    arr = ctypes.c_int * len(bcs_list)
+    return (
+        arr(*(stencils.first_color_parity(b) for b in bcs_list)),
+        arr(*(dirichlet_mask(b) for b in bcs_list)),
+        arr(*(1 if a else 0 for a in active)),
+    )
+
+
+def sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps: int, active, what: str) -> torch.Tensor:
+    """2*nsweeps half-sweep launches over a (B, nz, ny, nx) stack, lane b
+    with ``bcs_list[b]``: the first out of place into a new stack (reading
+    u + cor when cor is given), the rest in place on it, each over the
+    lanes ``active`` marks only."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
-    nz, ny, nx = (int(s) for s in u.shape)
+    nb, nz, ny, nx = (int(s) for s in u.shape)
     (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    dmask = dirichlet_mask(bcs)
-    red = stencils.first_color_parity(bcs)
+    color, dmask, act = _lane_args(bcs_list, active)
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.ndsm_rb_half_oop_f32(
-            u.data_ptr(), None if cor is None else cor.data_ptr(), None,
-            rhs.data_ptr(), out.data_ptr(), nz, ny, nx, red, dmask,
-            wz, wy, wx, w0, stream,
+        rc = lib.ndsm_lane_half_oop_f32(
+            u.data_ptr(), None if cor is None else cor.data_ptr(), None, rhs.data_ptr(),
+            out.data_ptr(), nb, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream,
         )
         cuda_build.check(rc, what)
         for k in range(1, 2 * int(nsweeps)):
-            color = red if k % 2 == 0 else 1 - red
-            rc = lib.ndsm_rb_half_inplace_f32(
-                out.data_ptr(), rhs.data_ptr(), nz, ny, nx, color, dmask,
-                wz, wy, wx, w0, stream,
+            rc = lib.ndsm_lane_half_inplace_f32(
+                out.data_ptr(), rhs.data_ptr(), nb, nz, ny, nx, color, dmask, act,
+                k % 2, wz, wy, wx, w0, stream,
             )
             cuda_build.check(rc, what)
     return out
 
 
+def residual_cuda(u, rhs, dq, bcs_list, active, what: str) -> torch.Tensor:
+    """One residual launch over a (B, nz, ny, nx) stack; zero on each
+    lane's Dirichlet faces and on the lanes ``active`` does not mark."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nb, nz, ny, nx = (int(s) for s in u.shape)
+    (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float32)
+    _, dmask, act = _lane_args(bcs_list, active)
+    r = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        rc = lib.ndsm_lane_residual_f32(
+            u.data_ptr(), rhs.data_ptr(), r.data_ptr(), nb, nz, ny, nx, dmask, act,
+            wz, wy, wx, stream,
+        )
+        cuda_build.check(rc, what)
+    return r
+
+
 def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """4*nsweeps + 1 launches: per sweep an out-of-place half-sweep that
-    subtracts the previous mean on load, an in-place half-sweep and the
-    two reduction passes into the device scalar ``m``; at the end the last
-    mean is subtracted in place."""
+    subtracts the previous mean on load, an in-place half-sweep (both
+    one-lane calls of the lane kernels) and the two reduction passes into
+    the device scalar ``m``; at the end the last mean is subtracted in
+    place."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -224,7 +262,7 @@ def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     n = u.numel()
     nblocks = mean_blocks(n)
     (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    red = stencils.first_color_parity(bcs)
+    color, dmask, act = _lane_args((bcs,), (True,))
     bufs = [torch.empty_like(u) for _ in range(min(2, int(nsweeps)))]
     parts = torch.empty(nblocks, dtype=torch.float32, device=u.device)
     m = torch.empty(1, dtype=torch.float32, device=u.device)
@@ -235,11 +273,11 @@ def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
         for k in range(int(nsweeps)):
             dst = bufs[k % 2]
             rcs = (
-                lib.ndsm_rb_half_oop_f32(
+                lib.ndsm_lane_half_oop_f32(
                     src.data_ptr(), None, sub, rhs.data_ptr(), dst.data_ptr(),
-                    nz, ny, nx, red, 0, wz, wy, wx, w0, stream),
-                lib.ndsm_rb_half_inplace_f32(
-                    dst.data_ptr(), rhs.data_ptr(), nz, ny, nx, 1 - red, 0,
+                    1, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream),
+                lib.ndsm_lane_half_inplace_f32(
+                    dst.data_ptr(), rhs.data_ptr(), 1, nz, ny, nx, color, dmask, act, 1,
                     wz, wy, wx, w0, stream),
                 lib.ndsm_sum_partials_f32(dst.data_ptr(), n, parts.data_ptr(), nblocks, stream),
                 lib.ndsm_sum_final_f32(parts.data_ptr(), nblocks, nf, m.data_ptr(), stream),
@@ -252,23 +290,6 @@ def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     return src
 
 
-def _residual_cuda(u, rhs, dq, bcs, what: str) -> torch.Tensor:
-    from ..utils import cuda_build
-
-    lib = cuda_build.kernels()
-    nz, ny, nx = (int(s) for s in u.shape)
-    (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float32)
-    r = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.ndsm_residual_f32(
-            u.data_ptr(), rhs.data_ptr(), r.data_ptr(), nz, ny, nx,
-            dirichlet_mask(bcs), wz, wy, wx, stream,
-        )
-        cuda_build.check(rc, what)
-    return r
-
-
 # ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
@@ -278,10 +299,11 @@ def zc_smooth_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """``nsweeps`` red-black sweeps of ``laplace(u) = rhs`` (float32, 3D).
     Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_3d."""
     check_level("zc_smooth_3d", (u, rhs), torch.float32)
-    bcs = _check_config("zc_smooth_3d", dq, bcs, nsweeps)
+    bcs = check_config("zc_smooth_3d", dq, bcs, nsweeps)
     if u.device.type == "cpu":
         return zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps)
-    out = _sweeps_cuda(u, None, rhs, dq, bcs, nsweeps, "zc_smooth_3d")
+    out = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,),
+                      "zc_smooth_3d")[0]
     zc_smooth_3d.launches += 1
     return out
 
@@ -291,23 +313,25 @@ def zc_smooth_residual_3d(u, rhs, dq, bcs, nsweeps: int
     """(u', r): ``nsweeps`` sweeps, then the residual of the swept state.
     Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_residual_3d."""
     check_level("zc_smooth_residual_3d", (u, rhs), torch.float32)
-    bcs = _check_config("zc_smooth_residual_3d", dq, bcs, nsweeps)
+    bcs = check_config("zc_smooth_residual_3d", dq, bcs, nsweeps)
     if u.device.type == "cpu":
         return zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps)
-    out = _sweeps_cuda(u, None, rhs, dq, bcs, nsweeps, "zc_smooth_residual_3d")
-    r = _residual_cuda(out, rhs, dq, bcs, "zc_smooth_residual_3d")
+    name = "zc_smooth_residual_3d"
+    out = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,), name)
+    r = residual_cuda(out, rhs[None], dq, (bcs,), (True,), name)
     zc_smooth_residual_3d.launches += 1
-    return out, r
+    return out[0], r[0]
 
 
 def zc_smooth_cor_3d(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """``nsweeps`` sweeps on ``u + cor`` (the V-cycle ascent's
     correct-then-relax).  Replaces ndsm_tpu/ops/pallas_zc.py:zc_smooth_cor_3d."""
     check_level("zc_smooth_cor_3d", (u, cor, rhs), torch.float32)
-    bcs = _check_config("zc_smooth_cor_3d", dq, bcs, nsweeps)
+    bcs = check_config("zc_smooth_cor_3d", dq, bcs, nsweeps)
     if u.device.type == "cpu":
         return zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, nsweeps)
-    out = _sweeps_cuda(u, cor, rhs, dq, bcs, nsweeps, "zc_smooth_cor_3d")
+    out = sweeps_cuda(u[None], cor[None], rhs[None], dq, (bcs,), nsweeps, (True,),
+                      "zc_smooth_cor_3d")[0]
     zc_smooth_cor_3d.launches += 1
     return out
 
@@ -318,7 +342,7 @@ def zc_smooth_mean_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     ndsm_tpu/ops/pallas_zc.py:zc_smooth_mean_3d together with the JAX
     engine's composition of its passes (mg/engine.py:_t_smooth_zc_mean)."""
     check_level("zc_smooth_mean_3d", (u, rhs), torch.float32)
-    bcs = _check_config("zc_smooth_mean_3d", dq, bcs, nsweeps, all_neumann=True)
+    bcs = check_config("zc_smooth_mean_3d", dq, bcs, nsweeps, all_neumann=True)
     if u.device.type == "cpu":
         return zc_smooth_mean_3d_plain(u, rhs, dq, bcs, nsweeps)
     out = _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps)

@@ -28,7 +28,6 @@ IERR_BADMESH = 2
 #: that ports the feature.
 _NOT_PORTED = {
     "per_face": (False, "Queue A: per_face"),
-    "batch_components": (("auto", "off"), "Queue A5 / B5: mg/batched MultiBCSolver"),
     "host_curl": (False, "Queue A: host_curl is a TPU-tunnel download pipeline"),
     "fetch_encoding": ("f64", "Queue A: fetch_encoding belongs to the host-curl pipeline"),
 }
@@ -52,6 +51,13 @@ class Options:
         existed only because f64 was emulated there); "f64" runs the
         scaled plain-torch defect group of ``PoissonBVP._mixed_group``.
       smoother: accepted for parity; the port has one formulation.
+      batch_components: "on" runs the three 3D component solves of
+        ``vector_potential`` as one lane-batched ``MultiBCSolver`` solve,
+        "off" one after the other; "auto" batches on a CUDA device in
+        mixed/fp32 precision when the three-lane working set (~48 B a
+        point a lane) fits 85% of the card's memory (JAX's rule, whose
+        kernel-coverage probe has no counterpart: the port's kernels take
+        every shape), and runs them one after the other on the CPU.
     """
 
     ms: int = 5
@@ -92,6 +98,8 @@ class Options:
             )
         if self.mixed_defect not in ("auto", "f64", "df32"):
             raise ValueError(f"unknown mixed_defect {self.mixed_defect!r}")
+        if self.batch_components not in ("auto", "on", "off"):
+            raise ValueError(f"unknown batch_components {self.batch_components!r}")
         if self.output_dtype not in ("float64", "float32"):
             raise ValueError(f"unknown output_dtype {self.output_dtype!r}")
 

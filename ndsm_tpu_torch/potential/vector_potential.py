@@ -10,16 +10,20 @@ compute_vector_potential, fortran/ndsm_vector_potential.f90:130-497):
   2. six flux-balanced all-Neumann 2D solves for chi, lane-batched per
      face hierarchy (``PoissonBVP.solve_batch``);
   3. tangential boundary data At = -grad(chi) x n (``_phase_at_u0``);
-  4. three 3D mixed-BC solves, one per component, run one after the
-     other (the JAX package's ``batch_components="off"`` path, whose
-     per-component iterates equal its batched path's);
+  4. three 3D mixed-BC solves, one per component: as one lane-batched
+     ``MultiBCSolver`` solve (mg/batched.py, the lane kernels of
+     ops/fused.py) when ``Options.batch_components`` says so
+     (``_batch_components``: "on", or "auto" on a CUDA device outside
+     fp64 when three lanes fit the card), else one ``PoissonBVP`` solve
+     after the other.  A lane's result does not depend on the other lanes
+     and agrees with the sequential solve to within 5e-9 and one cycle;
   5. the analytic flux-balance correction and B = curl(A) on the device
      (``_phase_post``).
 
 Everything after the face extraction stays on the device; the API copies
 A and B to the host at the end.  Not ported yet (ROADMAP.md Queue A):
-the per-face superposition, the lane-batched component solver
-(mg/batched), the host-curl download pipeline, and distributed runs.
+the per-face superposition, the host-curl download pipeline, and
+distributed runs.
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy, mesh_uniformity_error
+from ..mg.batched import MultiBCSolver
 from ..mg.poisson import get_poisson_bvp
 from ..ops.deriv import curl
 from ..ops.reduce import trapz_2d
 from ..options import IERR_BADMESH, Options, VectorPotentialInfo
+from ..utils.caching import BoundedCache
 from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg
 from . import faces as F
@@ -46,8 +52,17 @@ _SUB = "compute_vector_potential"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
-#: torch.profiler range around the chi phase (synchronised at its end).
+#: torch.profiler ranges around the chi and solve3d phases (each
+#: synchronised at its end).
 CHI_RANGE = "ndsm.chi_phase"
+SOLVE3D_RANGE = "ndsm.solve3d_phase"
+
+_MBS_CACHE: BoundedCache = BoundedCache(maxsize=8)
+
+#: Working set of the batched component solve, bytes a point a lane (the
+#: float64 iterate and defect, the float32 correction hierarchy and
+#: temporaries), as in the JAX package's rule.
+_BATCH_BYTES_PER_POINT = 48.0
 
 
 def _dbg(options: Options, msg: str) -> None:
@@ -148,6 +163,46 @@ def _phase_post(A, phi, xs, ys, zs, Lq, dq, order, out_dtype):
         _, A = _add_flux_balance_fields(mesh_xyz, Lq, phi, None, A)
         B = curl(A, dq)
     return A.to(out_dtype), B.to(out_dtype)
+
+
+def _batch_components(options: Options, mode: str, shape, dev: torch.device) -> bool:
+    """Whether the three component solves run as one ``MultiBCSolver``
+    solve: JAX's rule (ndsm_tpu/potential/vector_potential.py:395-448)
+    restated for the card.  Never with ``per_face`` or with
+    ``honor_ms_for_az`` False (the lanes' ms would differ); "auto" batches
+    on a CUDA device in mixed/fp32 precision when three lanes of ~48 B a
+    point fit 85% of its memory."""
+    bc = options.batch_components
+    if bc == "off" or options.per_face or not options.honor_ms_for_az:
+        return False
+    if bc == "on":
+        return True
+    if mode == "fp64" or dev.type != "cuda":
+        return False
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return 3.0 * float(np.prod(shape)) * _BATCH_BYTES_PER_POINT < 0.85 * total
+
+
+def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev):
+    """The three component solves one after the other (``PoissonBVP``);
+    ``u0s`` is emptied as they go.  Returns (A, infos)."""
+    comp_info = []
+    comps = []
+    for comp, bcs in enumerate(bcs_list):
+        opts = options
+        if comp == 2 and not options.honor_ms_for_az:
+            opts = dataclasses.replace(options, ms=5)  # quirk Q3 (:685)
+        bvp = get_poisson_bvp(hierarchy, bcs, opts, device=dev)
+        u, info = bvp.solve(
+            u0s[comp], None, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+            name=f"A{'xyz'[comp]}", zero_rhs=True,
+        )
+        u0s[comp] = None
+        comp_info.append(info)
+        # float32 outputs: downcast early (frees the f64 solution)
+        comps.append(u.to(out_dtype) if out_dtype == torch.float32 else u)
+    return torch.stack(comps), comp_info
 
 
 def compute_vector_potential(
@@ -270,32 +325,31 @@ def compute_vector_potential(
             hs.append((float(dq[d1]), float(dq[d2])))
     signs = tuple(F.at_signs(f) for f in range(6))
 
-    # ---- three 3D mixed-BC solves, one component at a time (:598-691)
+    # ---- three 3D mixed-BC solves (:598-691): batched or one at a time
     _dbg(options, "Solve BVP 3D...")
     out_dtype = _DTYPES[options.output_dtype]
-    u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
     hierarchy = GridHierarchy.from_mesh((z, y, x))
-    comp_info = []
-    comps = []
-    for comp in range(3):
-        # Neumann on the faces normal to this component, Dirichlet elsewhere
-        bcs = tuple(("N", "N") if (2 - axis) == comp else ("D", "D") for axis in range(3))
-        opts = options
-        if comp == 2 and not options.honor_ms_for_az:
-            opts = dataclasses.replace(options, ms=5)  # quirk Q3 (:685)
-        bvp = get_poisson_bvp(hierarchy, bcs, opts, device=dev)
-        u, info = bvp.solve(
-            u0s[comp], None, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
-            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
-            name=f"A{'xyz'[comp]}", zero_rhs=True,
-        )
-        u0s[comp] = None
-        comp_info.append(info)
-        # float32 outputs: downcast early (frees the f64 solution)
-        comps.append(u.to(out_dtype) if out_dtype == torch.float32 else u)
-    A = torch.stack(comps)
-    del comps
-    _mark("solve3d")
+    # Neumann on the faces normal to the component, Dirichlet elsewhere
+    bcs_list = tuple(
+        tuple(("N", "N") if (2 - axis) == comp else ("D", "D") for axis in range(3))
+        for comp in range(3)
+    )
+    with torch.profiler.record_function(SOLVE3D_RANGE):
+        u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
+        if _batch_components(options, mode, (nz, ny, nx), dev):
+            key = (hierarchy, bcs_list, dataclasses.astuple(options), str(dev))
+            mbs = _MBS_CACHE.get(key)
+            if mbs is None:
+                mbs = MultiBCSolver(hierarchy, bcs_list, options, device=dev)
+                _MBS_CACHE.put(key, mbs)
+            u0 = torch.stack(u0s)
+            del u0s
+            A, comp_info = mbs.solve(u0, names=["Ax", "Ay", "Az"])
+            del u0
+            A = A.to(out_dtype) if out_dtype == torch.float32 else A
+        else:
+            A, comp_info = _solve_components(u0s, hierarchy, bcs_list, options, out_dtype, dev)
+        _mark("solve3d")
 
     # ---- flux-balance correction + curl (:453-477)
     _dbg(options, "Compute B = curl(A) and flux correction...")

@@ -24,7 +24,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["kernels", "find_nvcc", "check", "NVCC_FLAGS"]
+__all__ = ["kernels", "build_dir", "find_nvcc", "check", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -42,19 +42,22 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: argtypes of every C entry point (restype is c_int for all).
 _SIGNATURES = {
-    "ndsm_rb_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "ndsm_rb_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "ndsm_sum_partials_f32": (_P, _L, _P, _I, _P),
     "ndsm_sum_final_f32": (_P, _I, _F, _P, _P),
     "ndsm_sub_scalar_f32": (_P, _P, _L, _P),
     "ndsm_v2d_smooth_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P),
-    "ndsm_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     "ndsm_defect_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
     "ndsm_defect_blocks": (_I, _I, _I),
+    "ndsm_lane_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I,
+                                   _F, _F, _F, _F, _P),
+    "ndsm_lane_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
+                               _F, _F, _F, _F, _P),
+    "ndsm_lane_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -138,12 +141,18 @@ def _build(out_dir: Path) -> Path:
             fcntl.flock(lk, fcntl.LOCK_UN)
 
 
+def build_dir() -> Path:
+    """Where the library of the current sources goes (with ``build.log``,
+    nvcc's and ptxas's output, after a build)."""
+    return BUILD_ROOT / _key()
+
+
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            path = _build(BUILD_ROOT / _key())
+            path = _build(build_dir())
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

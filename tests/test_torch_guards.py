@@ -31,7 +31,8 @@ def _modules():
 
 def test_import_leaves_jax_out():
     code = ("import sys, ndsm_tpu_torch, ndsm_tpu_torch.api, ndsm_tpu_torch.convert, "
-            "ndsm_tpu_torch.ops.zc, ndsm_tpu_torch.ops.df, ndsm_tpu_torch.utils.cuda_build; "
+            "ndsm_tpu_torch.ops.zc, ndsm_tpu_torch.ops.df, ndsm_tpu_torch.ops.fused, "
+            "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -82,6 +83,21 @@ def test_cuda_device_raises_without_card():
         ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cuda")
 
 
+def test_multibc_solver_raises_without_card():
+    """MultiBCSolver runs on the card unless told otherwise: with
+    device="cuda" (its default) it raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    x = np.linspace(0, 1, 8)
+    h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x, x))
+    bcs = [(("D", "D"), ("D", "D"), ("N", "N"))]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ndsm_tpu_torch.MultiBCSolver(h, bcs, Options(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ndsm_tpu_torch.MultiBCSolver(h, bcs)
+    assert ndsm_tpu_torch.MultiBCSolver(h, bcs, device="cpu").device.type == "cpu"
+
+
 def test_poisson_bvp_defaults_to_the_card():
     """PoissonBVP and get_poisson_bvp run on the card unless the caller
     asks for the CPU: with no device argument they raise without one."""
@@ -118,7 +134,6 @@ def test_precision_resolution():
 
 @pytest.mark.parametrize("kw", [
     {"per_face": True},
-    {"batch_components": "on"},
     {"host_curl": True},
     {"fetch_encoding": "split16"},
 ])
@@ -127,6 +142,37 @@ def test_unported_options_raise(kw):
         Options(**kw)
     with pytest.raises(NotImplementedError):
         convert.options_from_reference(dataclasses.asdict(ndsm_tpu.Options(**kw)))
+
+
+@pytest.mark.parametrize("mode", ["on", "off", "auto"])
+def test_batch_components_carried_by_convert(mode):
+    """Every batch_components value of the JAX package is ported: the
+    port's Options take it, and convert carries it through unchanged."""
+    ref = dataclasses.asdict(ndsm_tpu.Options(batch_components=mode, precision="mixed"))
+    o = convert.options_from_reference(ref)
+    assert o.batch_components == mode and o == Options(batch_components=mode, precision="mixed")
+    with pytest.raises(ValueError):
+        Options(batch_components="sometimes")
+
+
+def test_batch_components_auto_is_sequential_on_cpu():
+    """"auto" batches only on a CUDA device outside fp64 (JAX resolves its
+    kernels off on a CPU host and runs the components one by one); "on"
+    batches anywhere, except where the lanes' ms would differ."""
+    from ndsm_tpu_torch.potential.vector_potential import _batch_components
+
+    cpu, shape = torch.device("cpu"), (22, 22, 22)
+    for mode in ("mixed", "fp64", "fp32"):
+        assert not _batch_components(Options(), mode, shape, cpu)
+        assert _batch_components(Options(batch_components="on"), mode, shape, cpu)
+        assert not _batch_components(Options(batch_components="off"), mode, shape, cpu)
+    assert not _batch_components(Options(batch_components="on", honor_ms_for_az=False),
+                                 "mixed", shape, cpu)
+    x = np.linspace(0, 1, 8)
+    b = np.zeros((3, 8, 8, 8))
+    _, _, _, info = ndsm_tpu_torch.vector_potential(
+        x, x, x, b, device="cpu", full_output=True, precision="mixed")
+    assert [s.batch_size for s in info.components] == [1, 1, 1]
 
 
 def test_unported_arguments_raise():
@@ -148,6 +194,6 @@ def test_unported_arguments_raise():
 def test_kernel_sources_packaged():
     """The CUDA sources ship with the package (pyproject package-data)."""
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"zc_smooth.cu", "defect.cu", "stencil.cuh"} <= names
+    assert {"zc_smooth.cu", "defect.cu", "fused_smooth.cu", "stencil.cuh"} <= names
     text = (REPO / "pyproject.toml").read_text()
     assert '"ndsm_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
