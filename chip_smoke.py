@@ -20,7 +20,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          zc kernel calls and with the Az lane frozen;
        - the 2D smoother (v2d) on six 220^2 and six 512^2 lanes (the chi
          faces of 220^3 and 512^3), all-Neumann and mixed BCs;
-       - the all-Neumann 3D smoother at 220^3 and 256^3.
+       - the all-Neumann 3D smoother at 220^3 and 256^3;
+       - the colour-split smoother (compact_smooth_3d) with its split and
+         merge passes at 220^3, 110^3, 55^3 and 221x220x221 (odd nx), three
+         component BC sets: halves against the plain version (ghosts
+         included), merged against the dense kernel zc_smooth_3d, the split
+         and merge as an exact round trip; the lane form on the three
+         stacked lanes at 220^3 and 110^3 against three one-lane calls and
+         with the Az lane frozen; the whole dense-interface call (split,
+         sweeps, merge) timed beside zc_smooth_3d.
   3. path 1, the main path: ``vector_potential`` in mixed precision with
      default options (the three component solves batched on the card) on
      the analytic potential-field case at 22^3 and 220^3, checked against
@@ -33,8 +41,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      Path 1b: the same 220^3 case with ``batch_components="off"`` (the
      components one after the other: the one-lane 3D smoothers and the
      defect), golden-checked, counted, and held to path 1: per-component
-     cycles within 1, max|A_on - A_off| <= 5e-9.  Each route runs three
-     times warm without the profiler (once counted, twice in turns).
+     cycles within 1, max|A_on - A_off| <= 5e-9.
+     Path 3: the same case with ``Options(smoother="compact")``, components
+     batched: the colour-split lane kernel with its split and merge passes
+     must have launched and the dense lane smoothers must not.  Path 3b:
+     the same with ``batch_components="off"`` (the one-lane calls).  Both
+     are held to path 1 like path 1b, and the script prints whether A is
+     exactly the dense route's of the same batching.  Each route runs three times
+     warm without the profiler (once counted, twice in turns); paths 1, 1b
+     and 3 run once more under the profiler.
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
@@ -96,6 +111,11 @@ WORK = {
     "fused_smooth_residual_3d_batched": lambda ns: (16, 10 * ns + 13, PEAK_F32),
     "fused_smooth_cor_3d_batched": lambda ns: (16, 10 * ns + 1, PEAK_F32),
     "fused_smooth_3d": lambda ns: (12, 10 * ns, PEAK_F32),
+    # four halves read, two written: 6 half-arrays of 2 bytes a point each
+    "compact_smooth_3d": lambda ns: (12, 10 * ns, PEAK_F32),
+    "compact_smooth_3d_batched": lambda ns: (12, 10 * ns, PEAK_F32),  # per lane
+    "split_colors_3d": lambda ns: (8, 0, PEAK_F32),  # u in, two halves out
+    "merge_colors_3d": lambda ns: (8, 0, PEAK_F32),
 }
 
 
@@ -126,6 +146,44 @@ def time_ms(fn, reps: int = REPS) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def enqueue_ms(fn, reps: int = REPS) -> float:
+    """Median host time of ``fn()`` in ms, the device idle at its start and
+    not waited for at its end: what the host spends issuing the launches."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def device_ms(fn, reps: int = 5):
+    """(device busy ms, device events) of one ``fn()``: the summed durations
+    of the device-side events of ``reps`` calls under torch.profiler, over
+    ``reps``.  Unlike an event pair around the call it leaves out the gaps
+    in which the device waits for the host's next launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    if not dev:
+        raise AssertionError("the profiler recorded no device events")
+    return (sum(e.self_device_time_total for e in dev) / 1e3 / reps,
+            sum(e.count for e in dev) / reps)
 
 
 def time_pair(kern, plain):
@@ -165,7 +223,7 @@ class Stats:
             st["err"] = max(st["err"], err)
             st["ulp"] = max(st["ulp"], ulp)
 
-    def timed(self, key, kern, plain, points, ns, label, headline):
+    def timed(self, key, kern, plain, points, ns, label, headline, busy=False):
         kms, pms = time_pair(kern, plain)
         bms, by = bound(key, points, ns)
         log(f"[time] {key:22s} {label}: kernel {kms:.4f} ms  plain {pms:.4f} ms  bound "
@@ -173,6 +231,12 @@ class Stats:
         if headline:
             for k in (key,) + ALIASES.get(key, ()):
                 self.s[k].update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        if headline or busy:
+            # what of the event time is the device, and what the host issuing
+            hms, (dms, nev) = enqueue_ms(kern), device_ms(kern)
+            log(f"[time] {key:22s} {label}: host enqueue {hms:.4f} ms, device busy "
+                f"{dms:.4f} ms in {nev:.0f} device events (the bound is "
+                f"{100 * bms / dms:.1f}% of it)")
 
 
 def phase_device():
@@ -263,7 +327,8 @@ def phase_kernels(stats: Stats):
             head = n == 220 and tag == "Ax"
             lab = f"{n}^3 {tag} ns={MS}"
             stats.timed("zc_smooth_3d", lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS),
-                        lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, MS), pts, MS, lab, head)
+                        lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, MS), pts, MS, lab, head,
+                        busy=tag == "Ax")
             stats.timed("zc_smooth_residual_3d",
                         lambda: zc.zc_smooth_residual_3d(u, rhs, dq, bcs, MS),
                         lambda: zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, MS),
@@ -445,13 +510,140 @@ def phase_kernels(stats: Stats):
     del big, dst
 
 
-def check_counts(what: str, launches: dict, plain: dict, need) -> None:
+def phase_compact_kernels(stats: Stats):
+    """Parity and timing of the colour-split smoother, its split and its
+    merge, at the levels of paths 3 and 3b and at an odd-nx shape."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch.grids import GridHierarchy
+    from ndsm_tpu_torch.ops import compact, fused, zc
+    from ndsm_tpu_torch.utils.testing import build_test_mesh
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2025)
+
+    def f32(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+
+    def halves(key, lab, got, want):
+        for part, g, w in zip(("R", "B"), got, want):
+            stats.note(key, *compare(f"{key}({part}) {lab}", g, w))
+
+    h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
+    shapes = [(h.shapes[l], h.dq[l]) for l in (0, 1, 2)] + [((221, 220, 221), h.dq[0])]
+    for shape, dq in shapes:
+        nx, pts = shape[-1], int(np.prod(shape))
+        sname = "x".join(map(str, shape))
+        for tag, bcs in BC_SETS.items():
+            u, rhs, cor = f32(shape), f32(shape), f32(shape)
+            R, B = compact.split_colors_3d(u)
+            halves("split_colors_3d", f"{sname} {tag}", (R, B), compact.split_colors_3d_plain(u))
+            halves("split_colors_3d", f"{sname} {tag} u+cor", compact.split_colors_3d(u, cor),
+                   compact.split_colors_3d_plain(u, cor))
+            back = compact.merge_colors_3d(R, B, nx)
+            stats.note("merge_colors_3d", *compare(
+                f"merge_colors_3d {sname} {tag}", back, compact.merge_colors_3d_plain(R, B, nx)))
+            stats.note("merge_colors_3d", *compare(f"split + merge round trip {sname}", back, u))
+            rR, rB = compact.split_colors_3d(rhs)
+            for ns in SWEEPS:
+                lab = f"{sname} {tag} ns={ns}"
+                got = compact.compact_smooth_3d(R, B, rR, rB, dq, bcs, ns, nx)
+                halves("compact_smooth_3d", lab, got,
+                       compact.compact_smooth_3d_plain(R, B, rR, rB, dq, bcs, ns, nx))
+                # merged, the compact sweeps are the dense kernel's, bit for bit
+                stats.note("compact_smooth_3d", *compare(
+                    f"compact_smooth_3d merged vs zc_smooth_3d {lab}",
+                    compact.merge_colors_3d(*got, nx), zc.zc_smooth_3d(u, rhs, dq, bcs, ns)))
+                stats.note("compact_smooth_3d", *compare(
+                    f"smooth_dense(u + cor) vs zc_smooth_cor_3d {lab}",
+                    compact.smooth_dense(u, rhs, dq, bcs, ns, cor),
+                    zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ns)))
+                for part, g, w in zip(("u", "r"),
+                                      compact.smooth_residual_dense(u, rhs, dq, bcs, ns),
+                                      zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ns)):
+                    stats.note("compact_smooth_3d", *compare(
+                        f"smooth_residual_dense({part}) vs zc_smooth_residual_3d {lab}", g, w))
+            if shape[0] in (220, 110):
+                lab = f"{sname} {tag} ns={MS}"
+                stats.timed("compact_smooth_3d",
+                            lambda: compact.compact_smooth_3d(R, B, rR, rB, dq, bcs, MS, nx),
+                            lambda: compact.compact_smooth_3d_plain(R, B, rR, rB, dq, bcs, MS, nx),
+                            pts, MS, lab, shape[0] == 220 and tag == "Ax", busy=tag == "Ax")
+                cms, zms = time_pair(lambda: compact.smooth_dense(u, rhs, dq, bcs, MS),
+                                     lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS))
+                log(f"[time] dense-interface call {lab}: split u, split rhs, {2 * MS} "
+                    f"half-sweeps, merge {cms:.4f} ms; zc_smooth_3d {zms:.4f} ms")
+        log(f"[kernels] {sname}: compact_smooth_3d halves bitwise equal to the plain version "
+            f"(ghosts included) and, merged, to zc_smooth_3d / _residual / _cor; split and "
+            f"merge bitwise and an exact round trip (three BC sets, ns in {SWEEPS})")
+        del u, rhs, cor, R, B, rR, rB, back, got
+
+    # -- the lane form on the three component lanes of the batched solve
+    lanes = tuple(BC_SETS.values())
+    frozen = (True, True, False)  # Az stops first on the main path
+    for level in (0, 1):
+        shape, dq = h.shapes[level], h.dq[level]
+        n, nx = shape[0], shape[-1]
+        pts = 3 * int(np.prod(shape))
+        u, rhs, cor = f32((3,) + shape), f32((3,) + shape), f32((3,) + shape)
+        R, B = compact.split_colors_3d(u)
+        halves("split_colors_3d", f"{n}^3 x3", (R, B), compact.split_colors_3d_plain(u))
+        halves("split_colors_3d", f"{n}^3 x3 u+cor, Az frozen",
+               compact.split_colors_3d(u, cor, frozen),
+               compact.split_colors_3d_plain(u, cor, frozen))
+        stats.note("merge_colors_3d", *compare(
+            f"split + merge round trip {n}^3 x3", compact.merge_colors_3d(R, B, nx), u))
+        rR, rB = compact.split_colors_3d(rhs)
+        for ns in SWEEPS:
+            lab = f"{n}^3 x3 ns={ns}"
+            key = "compact_smooth_3d_batched"
+            got = compact.compact_smooth_3d_batched(R, B, rR, rB, dq, lanes, ns, nx)
+            halves(key, lab, got,
+                   compact.compact_smooth_3d_batched_plain(R, B, rR, rB, dq, lanes, ns, nx))
+            part = compact.compact_smooth_3d_batched(R, B, rR, rB, dq, lanes, ns, nx, frozen)
+            for b, bc in enumerate(lanes):
+                one = compact.compact_smooth_3d(R[b], B[b], rR[b], rB[b], dq, bc, ns, nx)
+                halves(key, f"{lab} lane {b} vs the one-lane call", (got[0][b], got[1][b]), one)
+                want = one if frozen[b] else (R[b], B[b])  # a frozen lane: unchanged
+                halves(key, f"{lab} Az frozen, lane {b}", (part[0][b], part[1][b]), want)
+            stats.note(key, *compare(
+                f"smooth_dense lanes vs fused_smooth_cor_3d_batched {lab} Az frozen",
+                compact.smooth_dense(u, rhs, dq, lanes, ns, cor, frozen),
+                fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, ns, frozen)))
+            del got, part, one, want
+        log(f"[kernels] {n}^3 x3 lanes: compact lane form bitwise equal to its plain version "
+            f"and to one-lane calls, all lanes active and Az frozen (ns in {SWEEPS})")
+        head = n == 220
+        lab = f"{n}^3 x3 ns={MS}"
+        stats.timed("compact_smooth_3d_batched",
+                    lambda: compact.compact_smooth_3d_batched(R, B, rR, rB, dq, lanes, MS, nx),
+                    lambda: compact.compact_smooth_3d_batched_plain(R, B, rR, rB, dq, lanes,
+                                                                    MS, nx),
+                    pts, MS, lab, head)
+        stats.timed("split_colors_3d", lambda: compact.split_colors_3d(u),
+                    lambda: compact.split_colors_3d_plain(u), pts, 1, f"{n}^3 x3", head)
+        stats.timed("merge_colors_3d", lambda: compact.merge_colors_3d(R, B, nx),
+                    lambda: compact.merge_colors_3d_plain(R, B, nx), pts, 1, f"{n}^3 x3", head)
+        cms, fms = time_pair(lambda: compact.smooth_dense(u, rhs, dq, lanes, MS),
+                             lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS))
+        zms = time_ms(lambda: compact.smooth_dense(u, rhs, dq, lanes, MS, None, frozen))
+        log(f"[time] dense-interface lane call {lab}: split u, split rhs, {2 * MS} "
+            f"half-sweeps, merge {cms:.4f} ms (Az frozen {zms:.4f} ms); "
+            f"fused_smooth_3d_batched {fms:.4f} ms")
+        del u, rhs, cor, R, B, rR, rB
+
+
+def check_counts(what: str, launches: dict, plain: dict, need, never=()) -> None:
     log(f"[{what}] launches {launches}; plain versions on the card {plain}")
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{what}: kernels never launched: {missing}")
     if any(plain.values()):
         raise AssertionError(f"{what}: plain versions ran on CUDA tensors: {plain}")
+    extra = [k for k in never if launches[k] > 0]
+    if extra:
+        raise AssertionError(f"{what}: kernels of another route launched: {extra}")
 
 
 PATH1 = ("fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
@@ -460,6 +652,13 @@ PATH1 = ("fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
 PATH1B = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d",
           "fused_smooth_3d", "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
 PATH2 = ("zc_smooth_mean_3d",)
+_COMMON = ("df_residual_3d", "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+PATH3 = ("compact_smooth_3d_batched", "split_colors_3d", "merge_colors_3d") + _COMMON
+PATH3B = ("compact_smooth_3d", "split_colors_3d", "merge_colors_3d") + _COMMON
+# The dense 3D smoothers: never launched where every level smooths colour-split.
+DENSE_3D = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d",
+            "fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
+            "fused_smooth_cor_3d_batched")
 
 
 def phase_main_path():
@@ -472,7 +671,7 @@ def phase_main_path():
 
     cases = {}
 
-    def run(n, batch="auto"):
+    def run(n, batch="auto", smoother="auto"):
         if n not in cases:  # the analytic case, built once per size on the host
             x, y, z = build_test_mesh(n)
             Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
@@ -481,8 +680,8 @@ def phase_main_path():
         x, y, z, A1, b1 = cases[n]
         t0 = time.perf_counter()
         ierr, A2, B2, info = vector_potential(
-            x, y, z, b1, options=Options(precision="mixed", batch_components=batch),
-            device="cuda", full_output=True)
+            x, y, z, b1, device="cuda", full_output=True,
+            options=Options(precision="mixed", batch_components=batch, smoother=smoother))
         wall = time.perf_counter() - t0
         if ierr != 0:
             raise AssertionError(f"vector_potential {n}^3: ierr={ierr}")
@@ -496,7 +695,8 @@ def phase_main_path():
         ok = abs(ea - g_ea) < GATE * g_ea and abs(eb - g_eb) < GATE * g_eb
         cyc = " ".join(f"{s.name}={s.cycles}" for s in info.chi + info.components)
         phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
-        route = f"batch_components={batch}, lanes {info.components[0].batch_size}"
+        route = (f"batch_components={batch}, smoother={smoother}, lanes "
+                 f"{info.components[0].batch_size}")
         log(f"[main] {n}^3 mixed ({route}): Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max "
             f"{eb:.5e} (golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}")
         log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}; component "
@@ -530,7 +730,7 @@ def phase_main_path():
                  PATH1B)
     da = float(np.abs(A_on - A_off).max())
     db = float(np.abs(B_on - B_off).max())
-    del A_on, B_on, A_off, B_off
+    del B_on, B_off
     log(f"[main] 220^3 batched vs one after the other: wall {wall:.4f} / {wall_b:.4f} s, "
         f"solve3d {info.phases['solve3d']:.4f} / {info_b.phases['solve3d']:.4f} s; "
         f"max|A_on - A_off| {da:.3e}, max|B_on - B_off| {db:.3e}")
@@ -541,15 +741,50 @@ def phase_main_path():
             raise AssertionError(f"{s_on.name}: cycles differ by more than 1 between routes")
     if not da <= 5e-9:
         raise AssertionError(f"max|A_on - A_off| = {da} > 5e-9")
-    # The two routes in turns (warm; host clock, so repeated): solve3d, wall.
-    turns = {"auto": [], "off": []}
-    for batch in ("auto", "off", "off", "auto"):
-        w, inf, _, _ = run(220, batch)
-        turns[batch].append((inf.phases["solve3d"], w))
-    for batch, tv in turns.items():
-        log(f"[main] 220^3 batch_components={batch} in turns: solve3d "
-            + " ".join(f"{t[0]:.4f}" for t in tv) + " s; wall "
-            + " ".join(f"{t[1]:.4f}" for t in tv) + " s")
+
+    # Paths 3 and 3b: the colour-split smoother on every 3D level, components
+    # batched and one after the other; each held to path 1.
+    counted, walls = {}, {"1": wall, "1b": wall_b}
+    for tag, batch, need in (("3", "auto", PATH3), ("3b", "off", PATH3B)):
+        run(220, batch, "compact")  # cold: first use of the compact engines
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        wall_c, info_c, A_c, _ = run(220, batch, "compact")
+        torch.cuda.synchronize()
+        counted[tag] = ops.launch_counts()
+        walls[tag] = wall_c
+        check_counts(f"main 220^3 warm, smoother=compact, batch_components={batch}",
+                     counted[tag], ops.plain_cuda_counts(), need, never=DENSE_3D)
+        dc = float(np.abs(A_c - A_on).max())
+        # the dense route with the same batching: predicted to be the same bits
+        same = dc if batch == "auto" else float(np.abs(A_c - A_off).max())
+        del A_c
+        log(f"[main] 220^3 path {tag} (compact) vs path 1 (dense, batched): wall {wall_c:.4f} "
+            f"/ {wall:.4f} s, solve3d {info_c.phases['solve3d']:.4f} / "
+            f"{info.phases['solve3d']:.4f} s, chi {info_c.phases['chi']:.4f} s; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+            f"max|A_compact - A_dense| {dc:.3e}; against the dense route with "
+            f"batch_components={batch} {same:.3e} (exactly 0.0: {same == 0.0})")
+        for s_c, s_d in zip(info_c.components, info.components):
+            log(f"[main]   {s_c.name}: cycles {s_c.cycles} / {s_d.cycles}, du "
+                f"{s_c.du_last:.6e} / {s_d.du_last:.6e}")
+            if abs(s_c.cycles - s_d.cycles) > 1:
+                raise AssertionError(f"{s_c.name}: cycles differ by more than 1 from path 1")
+        if not dc <= 5e-9:
+            raise AssertionError(f"path {tag}: max|A_compact - A_dense| = {dc} > 5e-9")
+    del A_on, A_off
+
+    # The four routes in turns (warm; host clock, so repeated): solve3d, wall.
+    routes = {"1": ("auto", "auto"), "1b": ("off", "auto"), "3": ("auto", "compact"),
+              "3b": ("off", "compact")}
+    turns = {tag: [] for tag in routes}
+    for tag in ("1", "3", "3b", "1b", "1b", "3b", "3", "1"):
+        w, inf, _, _ = run(220, *routes[tag])
+        turns[tag].append((inf.phases["solve3d"], w))
+    for tag, tv in turns.items():
+        log(f"[main] 220^3 path {tag} (batch_components={routes[tag][0]}, smoother="
+            f"{routes[tag][1]}) in turns: solve3d " + " ".join(f"{t[0]:.4f}" for t in tv)
+            + " s; wall " + " ".join(f"{t[1]:.4f}" for t in tv) + " s")
 
     # Where the time goes: one more warm 220^3 run of each route under
     # torch.profiler.  Device busy time = the summed durations of device-side
@@ -558,9 +793,10 @@ def phase_main_path():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for batch in ("auto", "off"):
+    for tag in ("1", "1b", "3"):
+        batch, smoother = routes[tag]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pwall, pinfo, _, _ = run(220, batch)
+            pwall, pinfo, _, _ = run(220, batch, smoother)
         # (the ranges also appear as device-side annotations: not kernels)
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0 and e.key not in (CHI_RANGE, SOLVE3D_RANGE)]
@@ -568,7 +804,8 @@ def phase_main_path():
             raise AssertionError("the profiler recorded no device events")
         busy = sum(e.self_device_time_total for e in dev) / 1e6
         launched = sum(e.count for e in dev)
-        uwall = wall if batch == "auto" else wall_b
+        uwall = walls[tag]
+        batch = f"{batch}, smoother={smoother}"
         log(f"[profile] 220^3 batch_components={batch}: device busy {busy:.4f} s, {launched} "
             f"device events; wall {pwall:.4f} s under the profiler (idle share "
             f"{1.0 - busy / pwall:.3f}), {uwall:.4f} s without it (idle share "
@@ -596,7 +833,7 @@ def phase_main_path():
                 f"{r_busy:.4f} s of {r_wall:.4f} s (idle share {1.0 - r_busy / r_wall:.3f}); "
                 "cycles " + " ".join(f"{s.name}={s.cycles}" for s in cyc)
                 + f"; most launched: {top}")
-    return launches, launches_b
+    return launches, launches_b, counted["3"], counted["3b"]
 
 
 def phase_neumann_3d():
@@ -656,12 +893,16 @@ def main() -> int:
     name, _ = phase_device()
     stats = Stats()
     phase_kernels(stats)
-    path1, path1b = phase_main_path()
+    phase_compact_kernels(stats)
+    path1, path1b, path3, path3b = phase_main_path()
     path2 = phase_neumann_3d()
     paths = (
         (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
         (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
         (PATH2, path2, "all-Neumann 3D solve 256^3"),
+        (PATH3, path3, "vector_potential 220^3 mixed, smoother=compact (components batched)"),
+        (PATH3B, path3b, "vector_potential 220^3 mixed, smoother=compact, "
+                         "batch_components=off"),
     )
     kernels = []
     for key, _, _, replaces, source in ops.KERNELS:

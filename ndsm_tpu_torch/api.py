@@ -48,7 +48,10 @@ def vector_potential(
     Returns (ierr, A, B) with A, B numpy arrays of shape (3, nz, ny, nx)
     (float64 unless ``options.output_dtype`` says float32), plus the
     diagnostics record when ``full_output``; its ``phases`` gain a
-    "fetch" entry, the copy of A and B to the host.
+    "fetch" entry, the copy of A and B to the host.  ``options`` carries
+    what the signature does not name, such as ``batch_components`` and
+    ``smoother`` ("compact": the component solves smooth on colour-split
+    state, with the same iterates; see ``Options``).
     """
     if dist is not None:
         raise NotImplementedError(

@@ -10,9 +10,14 @@ mask (checkerboard parity with the lane's first colour, Dirichlet
 freezing, residual zeroing) is per lane:
 
   * float32 3D levels smooth through ops/fused.py's lane kernels (one
-    launch per half-sweep for all lanes; on the CPU their plain versions);
-    other levels (float64) through the same masked sweeps in plain torch,
-    with the per-level lane masks ``_masks``;
+    launch per half-sweep for all lanes; on the CPU their plain versions),
+    or, with ``Options(smoother="compact")`` on every such level whose last
+    extent is >= 4, through the colour-split lane kernels of ops/compact.py
+    (split once, the sweeps on the halves, merge once; the residual is the
+    dense lane residual launch on the merged state), lane freezing as for
+    the dense lane kernels.  Merged, the compact sweeps equal the dense
+    ones bit for bit.  Other levels (float64) smooth through the same
+    masked sweeps in plain torch, with the per-level lane masks ``_masks``;
   * the grid transfers are BC-independent: each active lane's slice goes
     through ``apply_axis_matrices`` alone, the product the sequential
     route runs, written into its lane of the level's stack;
@@ -38,8 +43,9 @@ max|r| of its last defect, taken once with its final correction applied.
 Not ported, because it exists only for the TPU (ROADMAP.md "Not ported"):
 the padded work storage (``_plan_padding``, ``_pad0/_unpad0``,
 ``_work_shapes``, ``_interp_w/_restrict_w``; the port's kernels take every
-shape), the pass-width composition ``_pallas_nsweeps``, the
-colour-compact route ``_compact_fns`` (B9's layout), and the retry that
+shape), the pass-width composition ``_pallas_nsweeps`` (and with it the
+per-lane serial calls of ``_compact_fns``: the port's compact kernel takes
+the lanes in one launch), and the retry that
 rebuilt the solver with ``use_pallas="off"`` after a kernel-compile
 failure (a failed build or launch raises).  One addition: as in the
 sequential engine, the direct coarse solve is used only up to
@@ -55,7 +61,7 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy
-from ..ops import df, fused, stencils
+from ..ops import compact, df, fused, stencils, stencils_compact
 from ..ops.reduce import du_metrics
 from ..ops.transfer import (
     apply_axis_matrices,
@@ -129,6 +135,11 @@ class MultiBCSolver:
                                  for f, c in zip(fine, coarse)])
             self._restrict.append([torch.as_tensor(restrict_matrix_1d(c, f), dtype=dt, device=dev)
                                    for f, c in zip(fine, coarse)])
+        # Levels that smooth on colour-split state (module docstring).
+        self._compact = [
+            options.smoother == "compact" and hierarchy.ndim == 3
+            and stencils_compact.compact_supported(s) for s in hierarchy.shapes
+        ]
         # Per-level per-lane (first colour, second colour, interior) masks.
         self._masks = [fused.lane_masks(s, self.bcs_list, dev) for s in hierarchy.shapes]
         # Per-lane full-size coarse solvers (identity-free embedding: rows
@@ -155,6 +166,8 @@ class MultiBCSolver:
             return u
         dq = self._dq[level]
         if self._kernels(u):
+            if self._compact[level]:
+                return compact.smooth_dense(u, rhs, dq, self.bcs_list, n, None, act)
             return fused.fused_smooth_3d_batched(u, rhs, dq, self.bcs_list, n, act)
         return fused.lane_sweeps(u, rhs, dq, self._masks[level], n, act)
 
@@ -162,6 +175,8 @@ class MultiBCSolver:
         """ms pre-smooth sweeps + residual per lane: (u, r)."""
         ms, dq = self.options.ms, self._dq[level]
         if ms >= 1 and self._kernels(u):
+            if self._compact[level]:
+                return compact.smooth_residual_dense(u, rhs, dq, self.bcs_list, ms, act)
             return fused.fused_smooth_residual_3d_batched(u, rhs, dq, self.bcs_list, ms, act)
         u = self._smooth(u, rhs, level, ms, act)
         return u, fused.lane_residual(u, rhs, dq, self._masks[level], act)
@@ -170,6 +185,8 @@ class MultiBCSolver:
         """ms post-smooth sweeps per lane on (u + cor)."""
         ms, dq = self.options.ms, self._dq[level]
         if ms >= 1 and self._kernels(u):
+            if self._compact[level]:
+                return compact.smooth_dense(u, rhs, dq, self.bcs_list, ms, cor, act)
             return fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, self.bcs_list, ms, act)
         v = u + cor if all(act) else torch.where(self._sel(act), u + cor, u)
         return self._smooth(v, rhs, level, ms, act)

@@ -14,12 +14,22 @@ What the port changes:
   * on every float32 level, every smoothing call goes through a kernel
     wrapper: on a CUDA tensor that is the hand-written kernel, on a CPU
     tensor its plain version.
-      - 3D, not all-Neumann: ops/zc.py's zc_smooth_3d/_residual/_cor;
-      - 3D all-Neumann: ops/zc.py's zc_smooth_mean_3d (sweep, then
-        subtract the global mean, as the JAX engine composes it from
-        zc_smooth_mean_3d passes); its residual is the plain one, and the
-        correction is added before it, as in JAX, whose residual and
-        correction kernels exclude all-Neumann;
+      - 3D, not all-Neumann: ops/zc.py's zc_smooth_3d/_residual/_cor (the
+        dense kernels); with ``smoother="compact"``, on every such level
+        whose last extent is >= 4 (``stencils_compact.compact_supported``),
+        ops/compact.py instead: split into colour halves once, the sweeps
+        on the halves, merge once, then (residual form) the dense residual
+        launch on the merged state; the correction is added by the split.
+        A level the compact route does not take (nx < 4) goes to the dense
+        kernels by that rule, never by a handler.  Merged, the compact
+        sweeps equal the dense ones bit for bit, so the two routes give
+        the same iterates;
+      - 3D all-Neumann: ops/zc.py's zc_smooth_mean_3d, whatever
+        ``smoother`` says (sweep, then subtract the global mean, as the
+        JAX engine composes it from zc_smooth_mean_3d passes); its
+        residual is the plain one, and the correction is added before it,
+        as in JAX, whose residual and correction kernels exclude
+        all-Neumann;
       - 2D, with or without a lane axis (the chi faces): ops/v2d.py.
     The JAX engine's TPU-calibrated size gates, pass widths and padded
     work storage (128-lane alignment) have no counterpart: the CUDA
@@ -38,7 +48,7 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy
-from ..ops import stencils, v2d, zc
+from ..ops import compact, stencils, stencils_compact, v2d, zc
 from ..ops.reduce import du_metrics
 from ..ops.transfer import (
     apply_axis_matrices,
@@ -57,8 +67,10 @@ __all__ = ["MGEngine"]
 
 class MGEngine:
     """Cycle functions of one problem configuration (hierarchy, boundary
-    conditions, metric, dtype, device).  ``t_*`` methods take and return
-    tensors of the engine's dtype on its device."""
+    conditions, metric, dtype, device, and ``smoother``: ``"compact"`` or
+    anything else for the dense kernels; ``Options`` validates the names).
+    ``t_*`` methods take and return tensors of the engine's dtype on its
+    device."""
 
     def __init__(
         self,
@@ -70,6 +82,7 @@ class MGEngine:
         dtype: torch.dtype,
         device,
         coarse_direct: bool = False,
+        smoother: str = "auto",
     ):
         self.h = hierarchy
         self.bcs = stencils.validate_bcs(bcs, hierarchy.ndim)
@@ -81,7 +94,8 @@ class MGEngine:
         # The kernel route of float32 levels (module docstring).
         self.kernel_route = None
         if dtype == torch.float32 and hierarchy.ndim == 3:
-            self.kernel_route = "zc_mean" if stencils.is_all_neumann(self.bcs) else "zc"
+            self.kernel_route = "zc_mean" if stencils.is_all_neumann(self.bcs) else (
+                "compact" if smoother == "compact" else "zc")
         elif dtype == torch.float32 and hierarchy.ndim == 2:
             self.kernel_route = "v2d"
         coarse_shape = hierarchy.shapes[-1]
@@ -129,6 +143,9 @@ class MGEngine:
             # JAX smooths a 2D level with an extent < 3 on XLA; so does the port.
             return "v2d" if min(self.h.shapes[level]) >= 3 else None
         if self.kernel_route is not None and x.ndim == 3:
+            if self.kernel_route == "compact" and not stencils_compact.compact_supported(
+                    self.h.shapes[level], self.bcs):
+                return "zc"
             return self.kernel_route
         return None
 
@@ -142,6 +159,8 @@ class MGEngine:
         dq, route = self._dq[level], self._route(u, level)
         if route == "zc":
             return zc.zc_smooth_3d(u, rhs, dq, self.bcs, n)
+        if route == "compact":
+            return compact.smooth_dense(u, rhs, dq, self.bcs, n)
         if route == "zc_mean":
             return zc.zc_smooth_mean_3d(u, rhs, dq, self.bcs, n)
         if route == "v2d":
@@ -156,6 +175,8 @@ class MGEngine:
             dq, route = self._dq[level], self._route(u, level)
             if route == "zc":
                 return zc.zc_smooth_residual_3d(u, rhs, dq, self.bcs, self.ms)
+            if route == "compact":
+                return compact.smooth_residual_dense(u, rhs, dq, self.bcs, self.ms)
             if route == "v2d":
                 return v2d.v2d_smooth_residual(u, rhs, dq, self.bcs, self.ms)
         u = self.t_smooth(u, rhs, level)
@@ -168,6 +189,8 @@ class MGEngine:
             dq, route = self._dq[level], self._route(u, level)
             if route == "zc":
                 return zc.zc_smooth_cor_3d(u, cor, rhs, dq, self.bcs, self.ms)
+            if route == "compact":
+                return compact.smooth_dense(u, rhs, dq, self.bcs, self.ms, cor)
             if route == "v2d":
                 return v2d.v2d_smooth_cor(u, cor, rhs, dq, self.bcs, self.ms)
         return self.t_smooth(u + cor, rhs, level)

@@ -61,13 +61,14 @@ _COVFAIL_WARNING = (
 _EPS32 = 32.0 * float(np.finfo(np.float32).eps)
 
 
-def _cached_engine(hierarchy, bcs, ms, du_max, dtype, device, coarse_direct=False):
-    key = (hierarchy, bcs, ms, du_max, dtype, str(device), coarse_direct)
+def _cached_engine(hierarchy, bcs, ms, du_max, dtype, device, coarse_direct=False,
+                   smoother="auto"):
+    key = (hierarchy, bcs, ms, du_max, dtype, str(device), coarse_direct, smoother)
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         eng = MGEngine(
             hierarchy, bcs, ms=ms, du_max=du_max, dtype=dtype, device=device,
-            coarse_direct=coarse_direct,
+            coarse_direct=coarse_direct, smoother=smoother,
         )
         _ENGINE_CACHE.put(key, eng)
     return eng
@@ -114,14 +115,14 @@ class PoissonBVP:
         coarse_direct = cs == "direct" or (cs == "auto" and self.mode != "fp64")
         self._inner = _cached_engine(
             hierarchy, self.bcs, options.ms, options.du_max, self.inner_dtype,
-            self.device, coarse_direct,
+            self.device, coarse_direct, options.smoother,
         )
         self._outer = (
             self._inner
             if self.inner_dtype == self.outer_dtype
             else _cached_engine(
                 hierarchy, self.bcs, options.ms, options.du_max, self.outer_dtype,
-                self.device,
+                self.device, smoother=options.smoother,
             )
         )
         self._all_neumann = stencils.is_all_neumann(self.bcs)

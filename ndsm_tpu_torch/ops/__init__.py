@@ -7,7 +7,7 @@ counters, ``plain_cuda_counts`` the number of times a plain version ran on
 a CUDA tensor.
 """
 
-from . import df, fused, v2d, zc
+from . import compact, df, fused, v2d, zc
 from .fused import (
     fused_smooth_3d,
     fused_smooth_3d_batched,
@@ -27,11 +27,15 @@ from .transfer import apply_axis_matrices, interp_matrix_1d, restrict_matrix_1d
 _ZC = "ndsm_tpu_torch/csrc/zc_smooth.cu"
 _V2D = "ndsm_tpu_torch/csrc/v2d_smooth.cu"
 _FUSED = "ndsm_tpu_torch/csrc/fused_smooth.cu"
+_COMPACT = "ndsm_tpu_torch/csrc/compact_smooth.cu"
 
 #: (name, wrapper, plain version, replaced TPU kernel, CUDA source).  The
 #: 3D red-black wrappers are calls of one lane kernel family (B lanes or
 #: one); "fused_smooth_3d" and "zc_smooth_3d" are one wrapper, which ports
-#: both TPU kernels, so they share its launch counter.
+#: both TPU kernels, so they share its launch counter.  The colour-split
+#: smoother has a one-lane and a lane wrapper over one kernel; its split and
+#: merge passes replace tensor code that the JAX engine leaves to XLA
+#: around the TPU kernel.
 KERNELS = (
     ("zc_smooth_3d", zc.zc_smooth_3d, zc.zc_smooth_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:740", _FUSED),
@@ -57,6 +61,14 @@ KERNELS = (
      fused.fused_smooth_cor_3d_batched_plain, "ndsm_tpu/ops/pallas_fused.py:405", _FUSED),
     ("fused_smooth_3d", fused.fused_smooth_3d, fused.fused_smooth_3d_plain,
      "ndsm_tpu/ops/pallas_fused.py:319", _FUSED),
+    ("compact_smooth_3d", compact.compact_smooth_3d, compact.compact_smooth_3d_plain,
+     "ndsm_tpu/ops/pallas_compact.py:306", _COMPACT),
+    ("compact_smooth_3d_batched", compact.compact_smooth_3d_batched,
+     compact.compact_smooth_3d_batched_plain, "ndsm_tpu/ops/pallas_compact.py:306", _COMPACT),
+    ("split_colors_3d", compact.split_colors_3d, compact.split_colors_3d_plain,
+     "ndsm_tpu/ops/stencils_compact.py:109", _COMPACT),
+    ("merge_colors_3d", compact.merge_colors_3d, compact.merge_colors_3d_plain,
+     "ndsm_tpu/ops/stencils_compact.py:122", _COMPACT),
 )
 
 

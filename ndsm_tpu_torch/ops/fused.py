@@ -162,7 +162,7 @@ for _f in (fused_smooth_3d_batched_plain, fused_smooth_residual_3d_batched_plain
 # ----------------------------------------------------------------------
 
 
-def _check_lanes(name: str, tensors, dq, bcs_list, nsweeps: int,
+def check_lanes(name: str, tensors, dq, bcs_list, nsweeps: int,
                  active: Optional[Sequence[bool]]):
     check_level(name, tensors, torch.float32, lanes=True)
     nb = int(tensors[0].shape[0]) if tensors[0].ndim == 4 else 0
@@ -183,7 +183,7 @@ def fused_smooth_3d_batched(u, rhs, dq, bcs_list, nsweeps: int, active=None):
     """``nsweeps`` red-black sweeps of every lane of a (B, nz, ny, nx)
     float32 stack, lane b with ``bcs_list[b]``.  Replaces
     ndsm_tpu/ops/pallas_fused.py:fused_smooth_3d_batched."""
-    bcs_list, active = _check_lanes("fused_smooth_3d_batched", (u, rhs), dq, bcs_list,
+    bcs_list, active = check_lanes("fused_smooth_3d_batched", (u, rhs), dq, bcs_list,
                                     nsweeps, active)
     if u.device.type == "cpu":
         return fused_smooth_3d_batched_plain(u, rhs, dq, bcs_list, nsweeps, active)
@@ -197,7 +197,7 @@ def fused_smooth_residual_3d_batched(u, rhs, dq, bcs_list, nsweeps: int, active=
     state (the lane form of ndsm_tpu/ops/pallas_zc.py:zc_smooth_residual_3d
     as ndsm_tpu/mg/batched.py calls it per lane)."""
     name = "fused_smooth_residual_3d_batched"
-    bcs_list, active = _check_lanes(name, (u, rhs), dq, bcs_list, nsweeps, active)
+    bcs_list, active = check_lanes(name, (u, rhs), dq, bcs_list, nsweeps, active)
     if u.device.type == "cpu":
         return fused_smooth_residual_3d_batched_plain(u, rhs, dq, bcs_list, nsweeps, active)
     out = sweeps_cuda(u, None, rhs, dq, bcs_list, nsweeps, active, name)
@@ -211,7 +211,7 @@ def fused_smooth_cor_3d_batched(u, cor, rhs, dq, bcs_list, nsweeps: int, active=
     correct-then-relax; the lane form of
     ndsm_tpu/ops/pallas_zc.py:zc_smooth_cor_3d)."""
     name = "fused_smooth_cor_3d_batched"
-    bcs_list, active = _check_lanes(name, (u, cor, rhs), dq, bcs_list, nsweeps, active)
+    bcs_list, active = check_lanes(name, (u, cor, rhs), dq, bcs_list, nsweeps, active)
     if u.device.type == "cpu":
         return fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, bcs_list, nsweeps, active)
     out = sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps, active, name)

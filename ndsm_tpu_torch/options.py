@@ -50,7 +50,18 @@ class Options:
         float64 CUDA kernel (ops/df.py; the f32 pair of the TPU kernel
         existed only because f64 was emulated there); "f64" runs the
         scaled plain-torch defect group of ``PoissonBVP._mixed_group``.
-      smoother: accepted for parity; the port has one formulation.
+      smoother: "auto" and "masked" smooth float32 3D levels through the
+        dense kernels (ops/zc.py, ops/fused.py).  "compact" smooths every
+        float32 3D level that is not all-Neumann and has nx >= 4 on
+        colour-split state through ops/compact.py (split once, the sweeps
+        on the half-width colour arrays, merge once), in ``PoissonBVP``,
+        ``MultiBCSolver`` and both component routes of
+        ``vector_potential``; all-Neumann 3D levels, 2D levels and float64
+        levels smooth as under "auto".  The iterates are the same bit for
+        bit.  JAX reaches its compact kernel only where its z-compact
+        kernel declines a shape; the port's dense kernels decline nothing,
+        so here the compact route is an explicit request.  Any other value
+        raises.
       batch_components: "on" runs the three 3D component solves of
         ``vector_potential`` as one lane-batched ``MultiBCSolver`` solve,
         "off" one after the other; "auto" batches on a CUDA device in
@@ -98,6 +109,8 @@ class Options:
             )
         if self.mixed_defect not in ("auto", "f64", "df32"):
             raise ValueError(f"unknown mixed_defect {self.mixed_defect!r}")
+        if self.smoother not in ("auto", "masked", "compact"):
+            raise ValueError(f"unknown smoother {self.smoother!r}")
         if self.batch_components not in ("auto", "on", "off"):
             raise ValueError(f"unknown batch_components {self.batch_components!r}")
         if self.output_dtype not in ("float64", "float32"):

@@ -16,7 +16,10 @@ compute_vector_potential, fortran/ndsm_vector_potential.f90:130-497):
      (``_batch_components``: "on", or "auto" on a CUDA device outside
      fp64 when three lanes fit the card), else one ``PoissonBVP`` solve
      after the other.  A lane's result does not depend on the other lanes
-     and agrees with the sequential solve to within 5e-9 and one cycle;
+     and agrees with the sequential solve to within 5e-9 and one cycle.
+     ``Options.smoother`` rides in ``options`` to both routes: "compact"
+     smooths their float32 levels through ops/compact.py, with the same
+     iterates as the dense kernels;
   5. the analytic flux-balance correction and B = curl(A) on the device
      (``_phase_post``).
 

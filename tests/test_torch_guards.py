@@ -32,6 +32,7 @@ def _modules():
 def test_import_leaves_jax_out():
     code = ("import sys, ndsm_tpu_torch, ndsm_tpu_torch.api, ndsm_tpu_torch.convert, "
             "ndsm_tpu_torch.ops.zc, ndsm_tpu_torch.ops.df, ndsm_tpu_torch.ops.fused, "
+            "ndsm_tpu_torch.ops.compact, ndsm_tpu_torch.ops.stencils_compact, "
             "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
@@ -187,6 +188,8 @@ def test_unported_arguments_raise():
     for bad in ("off", "interpret"):
         with pytest.raises(ValueError):
             Options(use_pallas=bad)
+    with pytest.raises(ValueError):  # no option is accepted and ignored
+        Options(smoother="bogus")
     with pytest.raises(TypeError):
         convert.options_from_reference({"ms": 5, "no_such_option": 1})
 
@@ -194,6 +197,7 @@ def test_unported_arguments_raise():
 def test_kernel_sources_packaged():
     """The CUDA sources ship with the package (pyproject package-data)."""
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"zc_smooth.cu", "defect.cu", "fused_smooth.cu", "stencil.cuh"} <= names
+    assert {"zc_smooth.cu", "defect.cu", "fused_smooth.cu", "compact_smooth.cu",
+            "stencil.cuh"} <= names
     text = (REPO / "pyproject.toml").read_text()
     assert '"ndsm_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
