@@ -50,10 +50,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      exactly the dense route's of the same batching.  Each route runs three times
      warm without the profiler (once counted, twice in turns); paths 1, 1b
      and 3 run once more under the profiler.
+     The sharded kernels (B10 and B11 of the sharded engine) on the blocks
+     of a level cut over 2 or 4 shards on the one card and halo-extended by
+     the port's collectives: 220^3 over 2 (110 planes) and 4 (55 planes,
+     odd offsets) and 256^3 over 4, Ax and Az BCs (Dirichlet and Neumann z
+     faces): B10 (ns 1, 2, 5, with and without the residual) and B11 (its
+     four forms) against their plain versions on the first, middle and last
+     shard, the stitched shards against the unsharded zc_smooth_3d /
+     zc_smooth_residual_3d / df_residual_3d of the whole level, and the
+     engine's passes of width 2 (width 1 on 256^3's 4-plane blocks) with
+     their exchanges against the unsharded 5-sweep kernels; all bitwise.
+     Timed at path 4's level 0.
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
      error against the exact solution falls as h^2 (ratio 3.5-4.5).
+     Path 4: ``vector_potential(..., dist=DistConfig(make_mesh(2,
+     devices=["cuda:0"] * 2)))`` at 22^3 and 220^3, mixed: golden digits
+     exact, cycles within 1 of path 1b per chi face and component,
+     max|A_dist - A_1b| <= 5e-9, B10 and B11 launched, no plain sharded 3D
+     route and no plain version on the card, the messages and bytes of a
+     warm call printed; timed in turns with path 1b.  Path 5:
+     ``ShardedPoissonBVP`` at 256^3 over 4 shards, Ax BCs, mixed, held to
+     ``PoissonBVP`` on the card (cycles within 1, max|u_sh - u| <= 5e-9).
   5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
@@ -97,7 +116,9 @@ ALIASES = {"zc_smooth_3d": ("fused_smooth_3d",)}
 # Bytes count each input read once and each output written once; the
 # operations are the update's adds and multiplies (10 a point-sweep in
 # 3D, 7 in 2D), +2 a point-sweep for the mean (its sum and subtraction),
-# +13 (3D) / +9 (2D) for a residual, +1 for the correction's add.
+# +13 (3D) / +9 (2D) for a residual, +1 for the correction's add.  The
+# per-shard kernels' work is counted from their extended blocks instead
+# (``_time_sharded``): their halo planes are read and swept too.
 WORK = {
     "zc_smooth_3d": lambda ns: (12, 10 * ns, PEAK_F32),
     "zc_smooth_residual_3d": lambda ns: (16, 10 * ns + 13, PEAK_F32),
@@ -123,9 +144,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(key: str, points: int, ns: int):
-    """(least ms the card could take, "bytes" or "operations")."""
-    b, ops, peak = WORK[key](ns)
+def bound(key: str, points: int, ns: int, work=None):
+    """(least ms the card could take, "bytes" or "operations"), from WORK
+    per point, or from ``work`` = (bytes, operations, peak) of the call."""
+    b, ops, peak = WORK[key](ns) if work is None else (work[0] / points, work[1] / points,
+                                                        work[2])
     tb, to = b * points / PEAK_BYTES * 1e3, ops * points / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -223,9 +246,9 @@ class Stats:
             st["err"] = max(st["err"], err)
             st["ulp"] = max(st["ulp"], ulp)
 
-    def timed(self, key, kern, plain, points, ns, label, headline, busy=False):
+    def timed(self, key, kern, plain, points, ns, label, headline, busy=False, work=None):
         kms, pms = time_pair(kern, plain)
-        bms, by = bound(key, points, ns)
+        bms, by = bound(key, points, ns, work)
         log(f"[time] {key:22s} {label}: kernel {kms:.4f} ms  plain {pms:.4f} ms  bound "
             f"{bms:.4f} ms ({by}; {100 * bms / kms:.1f}% of it)")
         if headline:
@@ -661,52 +684,64 @@ DENSE_3D = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d",
             "fused_smooth_cor_3d_batched")
 
 
+_CASES = {}
+
+
+def run(n, batch="auto", smoother="auto", dist=None):
+    """One ``vector_potential`` call on the analytic case at n^3 (mixed
+    precision), held to the golden row; returns (wall s, info, A, B)."""
+    import numpy as np
+
+    from ndsm_tpu_torch import Options, vector_potential
+    from ndsm_tpu_torch.utils.testing import build_test_mesh, potential_field_case
+
+    if n not in _CASES:  # the analytic case, built once per size on the host
+        x, y, z = build_test_mesh(n)
+        Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
+        _CASES[n] = (x, y, z) + potential_field_case(X, Y, Z)
+        del Z, Y, X
+    x, y, z, A1, b1 = _CASES[n]
+    t0 = time.perf_counter()
+    ierr, A2, B2, info = vector_potential(
+        x, y, z, b1, device="cuda", full_output=True, dist=dist,
+        options=Options(precision="mixed", batch_components=batch, smoother=smoother))
+    wall = time.perf_counter() - t0
+    if ierr != 0:
+        raise AssertionError(f"vector_potential {n}^3: ierr={ierr}")
+    if not (np.isfinite(A2).all() and np.isfinite(B2).all()):
+        raise AssertionError(f"vector_potential {n}^3: non-finite output")
+    if A2.shape != (3, n, n, n) or A2.dtype != np.float64:
+        raise AssertionError(f"vector_potential {n}^3: got {A2.shape} {A2.dtype}")
+    ea = float(np.linalg.norm(A1 - A2, axis=0).max())
+    eb = float(np.linalg.norm(b1 - B2, axis=0).max())
+    g_ea, g_eb = GOLDEN[n]
+    ok = abs(ea - g_ea) < GATE * g_ea and abs(eb - g_eb) < GATE * g_eb
+    cyc = " ".join(f"{s.name}={s.cycles}" for s in info.chi + info.components)
+    phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
+    route = (f"batch_components={batch}, smoother={smoother}, lanes "
+             f"{info.components[0].batch_size}"
+             + ("" if dist is None else f", dist over {len(dist.mesh.devices)} shards"))
+    digits = f"{ea:.5e} {eb:.5e}" == f"{g_ea:.5e} {g_eb:.5e}"
+    log(f"[main] {n}^3 mixed ({route}): Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max "
+        f"{eb:.5e} (golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}, golden digits "
+        f"exact: {digits}")
+    log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}; component "
+        "du " + " ".join(f"{s.name}={s.du_last:.6e}" for s in info.components))
+    if not ok or (dist is not None and not digits):
+        raise AssertionError(f"vector_potential {n}^3 outside the golden gate"
+                             + ("" if dist is None else " or its digits"))
+    want = 3 if batch == "auto" and dist is None else 1
+    if any(s.batch_size != want for s in info.components):
+        raise AssertionError(f"{n}^3 {route}: expected {want} lane(s) per component solve")
+    return wall, info, A2, B2
+
+
 def phase_main_path():
     import numpy as np
     import torch
 
-    from ndsm_tpu_torch import Options, ops, vector_potential
+    from ndsm_tpu_torch import ops
     from ndsm_tpu_torch.potential.vector_potential import CHI_RANGE, SOLVE3D_RANGE
-    from ndsm_tpu_torch.utils.testing import build_test_mesh, potential_field_case
-
-    cases = {}
-
-    def run(n, batch="auto", smoother="auto"):
-        if n not in cases:  # the analytic case, built once per size on the host
-            x, y, z = build_test_mesh(n)
-            Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
-            cases[n] = (x, y, z) + potential_field_case(X, Y, Z)
-            del Z, Y, X
-        x, y, z, A1, b1 = cases[n]
-        t0 = time.perf_counter()
-        ierr, A2, B2, info = vector_potential(
-            x, y, z, b1, device="cuda", full_output=True,
-            options=Options(precision="mixed", batch_components=batch, smoother=smoother))
-        wall = time.perf_counter() - t0
-        if ierr != 0:
-            raise AssertionError(f"vector_potential {n}^3: ierr={ierr}")
-        if not (np.isfinite(A2).all() and np.isfinite(B2).all()):
-            raise AssertionError(f"vector_potential {n}^3: non-finite output")
-        if A2.shape != (3, n, n, n) or A2.dtype != np.float64:
-            raise AssertionError(f"vector_potential {n}^3: got {A2.shape} {A2.dtype}")
-        ea = float(np.linalg.norm(A1 - A2, axis=0).max())
-        eb = float(np.linalg.norm(b1 - B2, axis=0).max())
-        g_ea, g_eb = GOLDEN[n]
-        ok = abs(ea - g_ea) < GATE * g_ea and abs(eb - g_eb) < GATE * g_eb
-        cyc = " ".join(f"{s.name}={s.cycles}" for s in info.chi + info.components)
-        phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
-        route = (f"batch_components={batch}, smoother={smoother}, lanes "
-                 f"{info.components[0].batch_size}")
-        log(f"[main] {n}^3 mixed ({route}): Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max "
-            f"{eb:.5e} (golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}")
-        log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}; component "
-            "du " + " ".join(f"{s.name}={s.du_last:.6e}" for s in info.components))
-        if not ok:
-            raise AssertionError(f"vector_potential {n}^3 outside the golden gate")
-        want = 3 if batch == "auto" else 1
-        if any(s.batch_size != want for s in info.components):
-            raise AssertionError(f"{n}^3 {route}: expected {want} lane(s) per component solve")
-        return wall, info, A2, B2
 
     run(22)
     run(220)  # cold: first use of the 220^3 engines
@@ -772,7 +807,7 @@ def phase_main_path():
                 raise AssertionError(f"{s_c.name}: cycles differ by more than 1 from path 1")
         if not dc <= 5e-9:
             raise AssertionError(f"path {tag}: max|A_compact - A_dense| = {dc} > 5e-9")
-    del A_on, A_off
+    del A_on
 
     # The four routes in turns (warm; host clock, so repeated): solve3d, wall.
     routes = {"1": ("auto", "auto"), "1b": ("off", "auto"), "3": ("auto", "compact"),
@@ -833,7 +868,7 @@ def phase_main_path():
                 f"{r_busy:.4f} s of {r_wall:.4f} s (idle share {1.0 - r_busy / r_wall:.3f}); "
                 "cycles " + " ".join(f"{s.name}={s.cycles}" for s in cyc)
                 + f"; most launched: {top}")
-    return launches, launches_b, counted["3"], counted["3b"]
+    return launches, launches_b, counted["3"], counted["3b"], (A_off, info_b)
 
 
 def phase_neumann_3d():
@@ -878,6 +913,274 @@ def phase_neumann_3d():
     return launches
 
 
+# -- the sharded engine's per-shard kernels and paths 4 and 5
+
+SHARD_CONFIGS = ((220, 2), (220, 4), (256, 4))  # (n, shards): 110, 55 (odd) and 64 planes
+SHARD_BCS = ("Ax", "Az")  # Dirichlet z faces, and Neumann ones (the mirror planes)
+PATH4 = ("zc_smooth_sharded_3d", "zc_smooth_residual_sharded_3d", "df_residual_sharded_3d",
+         "df_update_residual_sharded_3d", "zc_smooth_3d", "zc_smooth_residual_3d",
+         "zc_smooth_cor_3d", "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+PATH5 = PATH4[:7]
+
+
+def hierarchy_of(n: int):
+    """The n^3 hierarchy: the main path's mesh at 220, linspace(0, 1) else."""
+    import numpy as np
+
+    from ndsm_tpu_torch.grids import GridHierarchy
+    from ndsm_tpu_torch.utils.testing import build_test_mesh
+
+    x = np.linspace(0.0, 1.0, n)
+    return GridHierarchy.from_mesh(build_test_mesh(n)[::-1] if n == 220 else (x, x, x))
+
+
+def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
+    """B10 and B11 on the blocks of a sharded level, halo-extended by the
+    port's own collectives: each shard's kernel call against its plain
+    version (first, middle and last shard), the stitched shards against the
+    unsharded kernel of the whole level, and the engine's width passes with
+    their exchanges against the unsharded ms-sweep kernels; all bitwise."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import Options
+    from ndsm_tpu_torch.ops import df, df_sharded, zc, zc_sharded
+    from ndsm_tpu_torch.parallel import collectives as C
+    from ndsm_tpu_torch.parallel.shard import make_mesh
+    from ndsm_tpu_torch.parallel.sm_engine import ShardedPoissonBVP
+
+    rng = np.random.default_rng(2026)
+    dev = torch.device(dev)
+
+    def rand(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+    def parts(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    for n, nsh in configs:
+        h = hierarchy_of(n)
+        mesh = make_mesh(nsh, devices=[dev] * nsh)
+        devs = mesh.devices
+        shape, dq = h.shapes[0], h.dq[0]
+        nzl = n // nsh
+        picks = sorted({0, nsh // 2, nsh - 1})
+        where = f"{n}^3 over {nsh} shards of {nzl} planes"
+        for tag in SHARD_BCS:
+            bcs = BC_SETS[tag]
+            u, rhs = rand(shape), rand(shape)
+            ub, rb = C.shard(u, devs, 0), C.shard(rhs, devs, 0)
+            for ns in SWEEPS:
+                for res in (False, True):
+                    key = "zc_smooth_residual_sharded_3d" if res else "zc_smooth_sharded_3d"
+                    fn, plain = getattr(zc_sharded, key), getattr(zc_sharded, key + "_plain")
+                    H = 2 * ns + res
+                    ue, re = C.extend_block(ub, devs, 0, H), C.extend_block(rb, devs, 0, H)
+                    outs = [fn(ue[i], re[i], dq, bcs, ns, i * nzl, n, H) for i in range(nsh)]
+                    for i in picks:
+                        want = plain(ue[i], re[i], dq, bcs, ns, i * nzl, n, H)
+                        for part, g, w in zip("ur", parts(outs[i]), parts(want)):
+                            stats.note(key, *compare(
+                                f"{key}({part}) {where} {tag} ns={ns} shard {i}", g, w))
+                    whole = (zc.zc_smooth_residual_3d if res else zc.zc_smooth_3d)(
+                        u, rhs, dq, bcs, ns)
+                    stitched = [torch.cat(p) for p in zip(*[parts(o) for o in outs])]
+                    for part, g, w in zip("ur", stitched, parts(whole)):
+                        stats.note(key, *compare(
+                            f"stitched {key}({part}) {where} {tag} ns={ns} vs the unsharded "
+                            "kernel", g, w))
+                    del ue, re, outs, whole, stitched
+            # the engine's passes (width 2, or 1 on blocks of < 6 planes) with
+            # their exchanges, MS sweeps, against the unsharded kernels
+            sb = ShardedPoissonBVP(h, bcs, Options(precision="mixed"), mesh=mesh)
+            for level in sorted({0, sb.seam - 1}):
+                lshape, ldq = h.shapes[level], h.dq[level]
+                lu, lr = (u, rhs) if level == 0 else (rand(lshape), rand(lshape))
+                lub, lrb = C.shard(lu, devs, 0), C.shard(lr, devs, 0)
+                lab = (f"{lshape[0]}^3 over {nsh} shards of {lshape[0] // nsh} planes {tag} "
+                       f"ms={MS}, passes of width {sb._pass_width(level, lu)}")
+                stats.note("zc_smooth_sharded_3d", *compare(
+                    f"engine smoothing {lab} vs zc_smooth_3d",
+                    torch.cat(sb._sh_smooth(lub, lrb, level, MS)),
+                    zc.zc_smooth_3d(lu, lr, ldq, bcs, MS)))
+                got = sb._sh_smooth_residual(lub, lrb, level, MS)
+                want = zc.zc_smooth_residual_3d(lu, lr, ldq, bcs, MS)
+                for part, g, w in zip("ur", got, want):
+                    stats.note("zc_smooth_residual_sharded_3d", *compare(
+                        f"engine smoothing + residual({part}) {lab} vs zc_smooth_residual_3d",
+                        torch.cat(g), w))
+            # B11 in the regime it runs in: a smooth O(1) iterate, small noise
+            zz, yy, xx = np.meshgrid(*h.meshes[0], indexing="ij")
+            u64 = torch.as_tensor(
+                np.sin(2.1 * zz + 0.3) * np.cos(1.7 * yy) * np.sin(2.9 * xx + 1.1)
+                + 1e-6 * rng.standard_normal(shape), dtype=torch.float64, device=dev)
+            del zz, yy, xx
+            rhs64, e32 = rand(shape, torch.float64), 1e-4 * rand(shape)
+            ue64 = C.extend_block(C.shard(u64, devs, 0), devs, 0, 1)
+            rb64, ee = C.shard(rhs64, devs, 0), C.extend_block(C.shard(e32, devs, 0), devs, 0, 1)
+            for form, with_rhs, upd in (("zero-rhs", False, False), ("rhs", True, False),
+                                        ("zero-rhs+update", False, True),
+                                        ("rhs+update", True, True)):
+                key = "df_update_residual_sharded_3d" if upd else "df_residual_sharded_3d"
+                outs = []
+                for i in range(nsh):
+                    args = ((ue64[i], rb64[i] if with_rhs else None)
+                            + ((ee[i],) if upd else ()) + (dq, bcs, i * nzl, n))
+                    outs.append(getattr(df_sharded, key)(*args))
+                    if i in picks:
+                        want = getattr(df_sharded, key + "_plain")(*args)
+                        for part, g, w in zip(("r32", "max", "u"), outs[i], want):
+                            stats.note(key, *compare(
+                                f"{key} {form} ({part}) {where} {tag} shard {i}", g, w))
+                whole = df.df_residual_3d(u64, rhs64 if with_rhs else None,
+                                          e32 if upd else None, dq, bcs)
+                got = (torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs]).max())
+                if upd:
+                    got += (torch.cat(C.unextend_block([o[2] for o in outs], 0, 1)),)
+                for part, g, w in zip(("r32", "max", "u"), got, whole):
+                    stats.note(key, *compare(
+                        f"stitched {key} {form} ({part}) {where} {tag} vs df_residual_3d", g, w))
+            log(f"[sharded] {where} {tag}: B10 (ns in {SWEEPS}, both forms) and B11 (four "
+                "forms) bitwise equal to their plain versions on the first, middle and last "
+                "shard; stitched, and as the engine's passes, bitwise equal to the unsharded "
+                "kernels")
+            if n == 220 and nsh == 2 and tag == "Ax":  # path 4's level 0
+                _time_sharded(stats, u, rhs, ub, rb, u64, ue64, ee, dq, bcs, n, nzl, devs)
+            del u, rhs, ub, rb, u64, rhs64, e32, ue64, rb64, ee, outs, whole, got
+
+
+def _time_sharded(stats, u, rhs, ub, rb, u64, ue64, ee, dq, bcs, n, nzl, devs):
+    """Times of B10 and B11 on shard 0 of path 4's level 0, as path 4 calls
+    them (2-sweep passes over a 4-plane halo; the 1-sweep residual pass
+    over 3; the zero-rhs defect with and without the update)."""
+    from ndsm_tpu_torch.ops import df_sharded, zc_sharded
+    from ndsm_tpu_torch.parallel import collectives as C
+
+    real = nzl * n * n
+    for key, ns in (("zc_smooth_sharded_3d", 2), ("zc_smooth_residual_sharded_3d", 1)):
+        res = key.startswith("zc_smooth_residual")
+        H = 2 * ns + res
+        ue, re = C.extend_block(ub, devs, 0, H)[0], C.extend_block(rb, devs, 0, H)[0]
+        ext = ue.numel()
+        fn, plain = getattr(zc_sharded, key), getattr(zc_sharded, key + "_plain")
+        work = (4 * (2 * ext + (2 if res else 1) * real), 10 * ns * ext + (13 * real if res else 0),
+                PEAK_F32)
+        stats.timed(key, lambda: fn(ue, re, dq, bcs, ns, 0, n, H),
+                    lambda: plain(ue, re, dq, bcs, ns, 0, n, H), real, ns,
+                    f"{n}^3 shard 0 of 2 (+{H} halo planes) ns={ns}", True, work=work)
+    ext = ue64[0].numel()
+    for key, args, work in (
+            ("df_residual_sharded_3d", (ue64[0], None, dq, bcs, 0, n),
+             (8 * ext + 4 * real, 14 * real, PEAK_F64)),
+            ("df_update_residual_sharded_3d", (ue64[0], None, ee[0], dq, bcs, 0, n),
+             (20 * ext + 4 * real, 14 * real + ext, PEAK_F64))):
+        fn, plain = getattr(df_sharded, key), getattr(df_sharded, key + "_plain")
+        stats.timed(key, lambda: fn(*args), lambda: plain(*args), real, 1,
+                    f"{n}^3 shard 0 of 2 (+1 halo plane) zero-rhs", True, work=work)
+
+
+def phase_dist_path(ref):
+    """Path 4: vector_potential with dist over two shards on the card, held
+    to path 1b (the same solves on one device)."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.parallel import collectives as C
+    from ndsm_tpu_torch.parallel import sm_engine
+    from ndsm_tpu_torch.parallel.shard import DistConfig, make_mesh
+
+    A_1b, info_1b = ref
+    dist = DistConfig(make_mesh(2, devices=["cuda:0"] * 2))
+    run(22, dist=dist)
+    run(220, dist=dist)  # cold: first use of the sharded engines
+    ops.reset_launch_counts()
+    sm_engine.reset_plain_route_counts()
+    C.reset_counts()
+    wall, info, A_d, _ = run(220, dist=dist)
+    torch.cuda.synchronize()
+    launches, msgs, routes = ops.launch_counts(), C.counts(), sm_engine.plain_route_counts()
+    check_counts("path 4: 220^3 warm, dist over 2 shards", launches, ops.plain_cuda_counts(),
+                 PATH4)
+    log(f"[dist] path 4 warm call: {msgs['messages']} messages, {msgs['bytes']} bytes between "
+        f"the shards; plain sharded routes on the card {routes}")
+    if routes["half_sweep_3d"] or routes["residual_3d"]:
+        raise AssertionError(f"path 4 ran a plain sharded 3D route on the card: {routes}")
+    da = float(np.abs(A_d - A_1b).max())
+    log(f"[dist] 220^3 path 4 vs path 1b: max|A_dist - A_1b| {da:.3e}")
+    for s_d, s_b in zip(info.chi + info.components, info_1b.chi + info_1b.components):
+        log(f"[dist]   {s_d.name}: cycles {s_d.cycles} / {s_b.cycles}, du "
+            f"{s_d.du_last:.6e} / {s_b.du_last:.6e}")
+        if abs(s_d.cycles - s_b.cycles) > 1:
+            raise AssertionError(f"{s_d.name}: cycles differ by more than 1 from path 1b")
+    if not da <= 5e-9:
+        raise AssertionError(f"max|A_dist - A_1b| = {da} > 5e-9")
+    del A_d, A_1b
+    turns = {"1b": [], "4": []}
+    for tag in ("1b", "4", "4", "1b"):
+        w, inf, _, _ = run(220, "off", dist=dist if tag == "4" else None)
+        turns[tag].append((w, inf.phases))
+    for tag, tv in turns.items():
+        log(f"[dist] 220^3 path {tag} in turns: wall " + " ".join(f"{w:.4f}" for w, _ in tv)
+            + " s; phases (s) " + " | ".join(
+                " ".join(f"{k}={v:.4f}" for k, v in ph.items()) for _, ph in tv))
+    return launches
+
+
+def phase_sharded_solve():
+    """Path 5: ShardedPoissonBVP at 256^3 over four shards on the card
+    (blocks of 64, 32, 16, 8 and 4 planes; the last level takes width-1
+    passes), held to PoissonBVP on the same problem."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import Options, PoissonBVP, ops
+    from ndsm_tpu_torch.parallel import collectives as C
+    from ndsm_tpu_torch.parallel import sm_engine
+    from ndsm_tpu_torch.parallel.shard import make_mesh
+
+    n, bcs = 256, BC_SETS["Ax"]
+    h = hierarchy_of(n)
+    x = np.linspace(0.0, 1.0, n)
+    ue = (np.sin(np.pi * x)[:, None, None] * np.sin(np.pi * x)[None, :, None]
+          * np.cos(np.pi * x)[None, None, :])
+    rhs = -3.0 * np.pi**2 * ue
+    u0 = np.zeros_like(rhs)
+    sb = sm_engine.ShardedPoissonBVP(h, bcs, Options(precision="mixed"),
+                                     mesh=make_mesh(4, devices=["cuda:0"] * 4))
+    plan = ", ".join(f"{h.shapes[l][0]}^3 {'sharded' if l < sb.seam else 'replicated'}"
+                     + (f" (width {sb._pass_width(l, torch.zeros((), dtype=torch.float32))})"
+                        if l < sb.seam else "") for l in range(h.ngrids))
+    log(f"[sharded] path 5 level plan: {plan}")
+    sb.solve(u0, rhs)  # cold
+    ops.reset_launch_counts()
+    sm_engine.reset_plain_route_counts()
+    C.reset_counts()
+    t0 = time.perf_counter()
+    u_sh, info_sh = sb.solve(u0, rhs)
+    torch.cuda.synchronize()
+    wall_sh = time.perf_counter() - t0
+    launches, msgs, routes = ops.launch_counts(), C.counts(), sm_engine.plain_route_counts()
+    check_counts("path 5: 256^3 over 4 shards", launches, ops.plain_cuda_counts(), PATH5)
+    if routes["half_sweep_3d"] or routes["residual_3d"]:
+        raise AssertionError(f"path 5 ran a plain sharded 3D route on the card: {routes}")
+    bvp = PoissonBVP(h, bcs, Options(precision="mixed"), device="cuda")
+    bvp.solve(u0, rhs)  # cold
+    t0 = time.perf_counter()
+    u, info = bvp.solve(u0, rhs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = float((u_sh - u).abs().max())
+    err = float((u.cpu() - torch.as_tensor(ue)).abs().max())
+    log(f"[sharded] path 5 256^3 Ax mixed: sharded {info_sh.cycles} cycles in {wall_sh:.4f} s "
+        f"({msgs['messages']} messages, {msgs['bytes']} bytes), PoissonBVP {info.cycles} "
+        f"cycles in {wall:.4f} s; max|u_sh - u| {d:.3e}; max|u - exact| {err:.3e}")
+    if info_sh.ierr or abs(info_sh.cycles - info.cycles) > 1 or not d <= 5e-9:
+        raise AssertionError(f"path 5: ierr {info_sh.ierr}, cycles {info_sh.cycles} / "
+                             f"{info.cycles}, max|u_sh - u| {d}")
+    return launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -894,8 +1197,11 @@ def main() -> int:
     stats = Stats()
     phase_kernels(stats)
     phase_compact_kernels(stats)
-    path1, path1b, path3, path3b = phase_main_path()
+    phase_sharded_kernels(stats)
+    path1, path1b, path3, path3b, ref1b = phase_main_path()
     path2 = phase_neumann_3d()
+    path4 = phase_dist_path(ref1b)
+    path5 = phase_sharded_solve()
     paths = (
         (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
         (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
@@ -903,6 +1209,8 @@ def main() -> int:
         (PATH3, path3, "vector_potential 220^3 mixed, smoother=compact (components batched)"),
         (PATH3B, path3b, "vector_potential 220^3 mixed, smoother=compact, "
                          "batch_components=off"),
+        (PATH4, path4, "vector_potential 220^3 mixed, dist over 2 shards on one card"),
+        (PATH5, path5, "ShardedPoissonBVP 256^3 Ax mixed over 4 shards on one card"),
     )
     kernels = []
     for key, _, _, replaces, source in ops.KERNELS:
@@ -921,6 +1229,7 @@ def main() -> int:
             "bound_by": st["bound_by"],
             "library_ms": None,
             "path": path,
+            "launches_by_path": {p[2]: p[1][key] for p in paths if key in p[0]},
         })
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,12 +52,14 @@ def vector_potential(
     what the signature does not name, such as ``batch_components`` and
     ``smoother`` ("compact": the component solves smooth on colour-split
     state, with the same iterates; see ``Options``).
+
+    ``dist``: optional ``ndsm_tpu_torch.parallel.shard.DistConfig`` -- run
+    every sub-solve on the sharded engine over a device mesh (spatial
+    domain decomposition; sub-problems whose shapes cannot be partitioned
+    run on one device).  Its mesh's devices must be of ``device``'s type,
+    e.g. ``DistConfig(make_mesh(2, devices=["cuda:0"] * 2))`` on one card
+    or ``make_mesh(4, devices=["cpu"] * 4)`` with ``device="cpu"``.
     """
-    if dist is not None:
-        raise NotImplementedError(
-            "dist= (distributed solves) is not ported to ndsm_tpu_torch yet "
-            "(ROADMAP.md Queue A: parallel/)"
-        )
     if options is None:
         options = Options(
             ms=ms,
@@ -70,7 +72,7 @@ def vector_potential(
             precision=precision,
         )
     ierr, A, B, info = compute_vector_potential(
-        (x, y, z), np.asarray(b), options, device=device
+        (x, y, z), np.asarray(b), options, device=device, dist=dist
     )
     t0 = time.perf_counter()
     A = A.cpu().numpy()

@@ -23,6 +23,19 @@
 // f64 arithmetic (~190 FLOP/point in the TPU's pair form, ~20 here) is far
 // below the H100's f64 rate.  The design streams each array once; the
 // neighbour reads hit L1/L2.
+//
+// defect_sharded_f64 is the same defect on one shard of a z-partitioned
+// level (replaces ndsm_tpu/ops/pallas_df.py: df_residual_sharded_3d, its
+// zero_rhs and update variants).  u (and e) are the shard's block extended
+// by one halo plane a side, (nz + 2, ny, nx), filled by the engine with the
+// neighbours' planes or, at the ends of the chain, node-mirror planes; rhs
+// and r32 are the real block (nz, ny, nx).  The update writes v = u + e
+// over the whole extended block (the engine carries it across defect
+// groups), the residual is taken over the real planes only, whose z
+// neighbours are the halo planes, and Dirichlet faces are tested in global
+// z (z0 + z against NZ).  Over the real block r32 equals defect_f64's on
+// the whole level bit for bit: the halo planes hold the values the
+// reflection would read.
 
 #include "stencil.cuh"
 
@@ -30,6 +43,20 @@ namespace ndsm {
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (b > a || b != b) ? b : a;
+}
+
+// Block max of |r32| (a: this thread's), NaN-propagating like torch.max.
+__device__ __forceinline__ void write_block_max(float a, float* block_max) {
+  for (int off = 16; off > 0; off >>= 1)
+    a = nan_max(a, __shfl_down_sync(0xffffffffu, a, off));
+  __shared__ float warp_max[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = a;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = warp_max[0];
+    for (int w = 1; w < kThreads / 32; ++w) m = nan_max(m, warp_max[w]);
+    block_max[blockIdx.x] = m;
+  }
 }
 
 __global__ void defect_f64(const double* __restrict__ u,
@@ -61,17 +88,44 @@ __global__ void defect_f64(const double* __restrict__ u,
     r32[p] = rv;
     a = fabsf(rv);
   }
-  // Block max of |r32|, NaN-propagating like torch.max.
-  for (int off = 16; off > 0; off >>= 1)
-    a = nan_max(a, __shfl_down_sync(0xffffffffu, a, off));
-  __shared__ float warp_max[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = a;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_max[0];
-    for (int w = 1; w < kThreads / 32; ++w) m = nan_max(m, warp_max[w]);
-    block_max[blockIdx.x] = m;
+  write_block_max(a, block_max);
+}
+
+__global__ void defect_sharded_f64(const double* __restrict__ u,
+                                   const float* __restrict__ e,
+                                   double* __restrict__ u_out,
+                                   const double* __restrict__ rhs,
+                                   float* __restrict__ r32,
+                                   float* __restrict__ block_max, int nz,
+                                   int ny, int nx, int z0, int NZ, int dmask,
+                                   double wz, double wy, double wx) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)ny * nx;
+  float a = 0.0f;
+  if (p < (long long)(nz + 2) * plane) {
+    const int x = (int)(p % nx);
+    const long long row = p / nx;
+    const int y = (int)(row % ny);
+    const int kz = (int)(row / ny);
+    auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
+    const double c = v(p);
+    if (u_out) u_out[p] = c;
+    if (kz >= 1 && kz <= nz) {
+      const long long rp = p - plane;
+      float rv = 0.0f;
+      if (!on_dirichlet_face(z0 + kz - 1, y, x, NZ, ny, nx, dmask)) {
+        const Neighbours n = neighbours(kz, y, x, nz + 2, ny, nx);
+        const double c2 = 2.0 * c;
+        double t = ((v(n.zl) - c2) + v(n.zh)) * wz;
+        t = t + ((v(n.yl) - c2) + v(n.yh)) * wy;
+        t = t + ((v(n.xl) - c2) + v(n.xh)) * wx;
+        rv = (float)((rhs ? rhs[rp] : 0.0) - t);
+      }
+      r32[rp] = rv;
+      a = fabsf(rv);
+    }
   }
+  write_block_max(a, block_max);
 }
 
 }  // namespace ndsm
@@ -89,5 +143,18 @@ extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
                      (cudaStream_t)stream>>>(
       (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
       (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ndsm_defect_sharded_f64(const void* u, const void* e, void* u_out,
+                                       const void* rhs, void* r32, void* block_max,
+                                       int nz, int ny, int nx, int z0, int NZ,
+                                       int dmask, double wz, double wy, double wx,
+                                       void* stream) {
+  const long long n = (long long)(nz + 2) * ny * nx;
+  ndsm::defect_sharded_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
+      (float*)r32, (float*)block_max, nz, ny, nx, z0, NZ, dmask, wz, wy, wx);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,7 @@ counters, ``plain_cuda_counts`` the number of times a plain version ran on
 a CUDA tensor.
 """
 
-from . import compact, df, fused, v2d, zc
+from . import compact, df, df_sharded, fused, v2d, zc, zc_sharded
 from .fused import (
     fused_smooth_3d,
     fused_smooth_3d_batched,
@@ -28,6 +28,8 @@ _ZC = "ndsm_tpu_torch/csrc/zc_smooth.cu"
 _V2D = "ndsm_tpu_torch/csrc/v2d_smooth.cu"
 _FUSED = "ndsm_tpu_torch/csrc/fused_smooth.cu"
 _COMPACT = "ndsm_tpu_torch/csrc/compact_smooth.cu"
+_SHARDED = "ndsm_tpu_torch/csrc/zc_sharded.cu"
+_DEFECT = "ndsm_tpu_torch/csrc/defect.cu"
 
 #: (name, wrapper, plain version, replaced TPU kernel, CUDA source).  The
 #: 3D red-black wrappers are calls of one lane kernel family (B lanes or
@@ -35,7 +37,10 @@ _COMPACT = "ndsm_tpu_torch/csrc/compact_smooth.cu"
 #: both TPU kernels, so they share its launch counter.  The colour-split
 #: smoother has a one-lane and a lane wrapper over one kernel; its split and
 #: merge passes replace tensor code that the JAX engine leaves to XLA
-#: around the TPU kernel.
+#: around the TPU kernel.  The per-shard kernels of the sharded engine
+#: (parallel/sm_engine.py) close the list: the sweeps on a halo-extended
+#: block with and without the fused residual, and the shard's defect
+#: without and with the pending correction.
 KERNELS = (
     ("zc_smooth_3d", zc.zc_smooth_3d, zc.zc_smooth_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:740", _FUSED),
@@ -44,7 +49,7 @@ KERNELS = (
     ("zc_smooth_cor_3d", zc.zc_smooth_cor_3d, zc.zc_smooth_cor_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:796", _FUSED),
     ("df_residual_3d", df.df_residual_3d, df.df_residual_3d_plain,
-     "ndsm_tpu/ops/pallas_df.py:520", "ndsm_tpu_torch/csrc/defect.cu"),
+     "ndsm_tpu/ops/pallas_df.py:520", _DEFECT),
     ("zc_smooth_mean_3d", zc.zc_smooth_mean_3d, zc.zc_smooth_mean_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:766", _ZC),
     ("v2d_smooth", v2d.v2d_smooth, v2d.v2d_smooth_plain, "ndsm_tpu/ops/pallas_v2d.py:451",
@@ -69,6 +74,16 @@ KERNELS = (
      "ndsm_tpu/ops/stencils_compact.py:109", _COMPACT),
     ("merge_colors_3d", compact.merge_colors_3d, compact.merge_colors_3d_plain,
      "ndsm_tpu/ops/stencils_compact.py:122", _COMPACT),
+    ("zc_smooth_sharded_3d", zc_sharded.zc_smooth_sharded_3d,
+     zc_sharded.zc_smooth_sharded_3d_plain, "ndsm_tpu/ops/pallas_zc.py:1275", _SHARDED),
+    ("zc_smooth_residual_sharded_3d", zc_sharded.zc_smooth_residual_sharded_3d,
+     zc_sharded.zc_smooth_residual_sharded_3d_plain, "ndsm_tpu/ops/pallas_zc.py:1275",
+     _SHARDED),
+    ("df_residual_sharded_3d", df_sharded.df_residual_sharded_3d,
+     df_sharded.df_residual_sharded_3d_plain, "ndsm_tpu/ops/pallas_df.py:922", _DEFECT),
+    ("df_update_residual_sharded_3d", df_sharded.df_update_residual_sharded_3d,
+     df_sharded.df_update_residual_sharded_3d_plain, "ndsm_tpu/ops/pallas_df.py:922",
+     _DEFECT),
 )
 
 

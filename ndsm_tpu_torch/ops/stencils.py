@@ -45,6 +45,7 @@ __all__ = [
     "stencil_weights",
     "interior_mask",
     "color_masks",
+    "shard_masks",
     "red_black",
     "masked_red_black",
     "rb_sweep",
@@ -130,6 +131,30 @@ def color_masks(shape: Tuple[int, ...], bcs: BCS, device):
         interior = interior_mask(shape, bcs, device)
         red = first_color_parity(bcs)
         m = ((parity == red) & interior, (parity == 1 - red) & interior)
+        _MASKS.put(key, m)
+    return m
+
+
+def shard_masks(shape: Tuple[int, ...], z0: int, nz_global: int, bcs: BCS, device):
+    """(red, black, interior) masks of a block of ``shape`` whose axis-0
+    plane k is plane ``z0 + k`` of a level with ``nz_global`` planes (a
+    shard's block, halo planes included, which may lie outside the level):
+    colour parity and Dirichlet faces in global indices along axis 0."""
+    key = ("shard", tuple(shape), z0, nz_global, bcs, str(device))
+    m = _MASKS.get(key)
+    if m is None:
+        idx = [_axis_index(shape, ax, device) for ax in range(len(shape))]
+        idx[0] = idx[0] + z0
+        extent = (nz_global,) + tuple(shape[1:])
+        parity = sum(idx[1:], idx[0]) % 2
+        interior = torch.ones(tuple(shape), dtype=torch.bool, device=device)
+        for ax, (blo, bhi) in enumerate(bcs):
+            if blo == "D":
+                interior = interior & (idx[ax] != 0)
+            if bhi == "D":
+                interior = interior & (idx[ax] != extent[ax] - 1)
+        red = first_color_parity(bcs)
+        m = ((parity == red) & interior, (parity == 1 - red) & interior, interior)
         _MASKS.put(key, m)
     return m
 

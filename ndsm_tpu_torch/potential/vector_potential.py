@@ -23,10 +23,17 @@ compute_vector_potential, fortran/ndsm_vector_potential.f90:130-497):
   5. the analytic flux-balance correction and B = curl(A) on the device
      (``_phase_post``).
 
+With ``dist`` (a ``parallel.shard.DistConfig``) every sub-solve whose
+shapes can be partitioned runs on the sharded engine
+(``parallel/sm_engine.py``) over ``dist.mesh``, as the JAX pipeline does:
+each group of chi faces as one lane-masked ``solve_batch``, the three
+components one after the other (no component batching under ``dist``),
+each a zero-rhs ``solve``; a sub-problem that cannot be partitioned runs
+on ``device``.  The mesh's devices must be of ``device``'s type.
+
 Everything after the face extraction stays on the device; the API copies
 A and B to the host at the end.  Not ported yet (ROADMAP.md Queue A):
-the per-face superposition, the host-curl download pipeline, and
-distributed runs.
+the per-face superposition and the host-curl download pipeline.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..mg.poisson import get_poisson_bvp
 from ..ops.deriv import curl
 from ..ops.reduce import trapz_2d
 from ..options import IERR_BADMESH, Options, VectorPotentialInfo
+from ..parallel.sm_engine import ShardedPoissonBVP, seam_of
 from ..utils.caching import BoundedCache
 from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg
@@ -61,6 +69,7 @@ CHI_RANGE = "ndsm.chi_phase"
 SOLVE3D_RANGE = "ndsm.solve3d_phase"
 
 _MBS_CACHE: BoundedCache = BoundedCache(maxsize=8)
+_DIST_BVP_CACHE: BoundedCache = BoundedCache(maxsize=32)
 
 #: Working set of the batched component solve, bytes a point a lane (the
 #: float64 iterate and defect, the float32 correction hierarchy and
@@ -186,21 +195,46 @@ def _batch_components(options: Options, mode: str, shape, dev: torch.device) -> 
     return 3.0 * float(np.prod(shape)) * _BATCH_BYTES_PER_POINT < 0.85 * total
 
 
-def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev):
-    """The three component solves one after the other (``PoissonBVP``);
-    ``u0s`` is emptied as they go.  Returns (A, infos)."""
+def _dist_bvp(hierarchy, bcs, options: Options, dist):
+    """The sharded engine of this sub-problem, or None when its shapes
+    cannot be partitioned over the mesh (it then runs on one device).
+    Keyed by the whole options tuple, as in the JAX pipeline."""
+    key = (hierarchy, tuple(tuple(b) for b in bcs), dataclasses.astuple(options), dist)
+    bvp = _DIST_BVP_CACHE.get(key)
+    if bvp is None:
+        bvp = False  # (cached too: not partitionable)
+        if seam_of(hierarchy, len(dist.mesh.devices), dist.min_rows_per_shard):
+            bvp = ShardedPoissonBVP(
+                hierarchy, bcs, options, mesh=dist.mesh,
+                axis_names=tuple(dist.axis_names[: hierarchy.ndim - 1]),
+                min_rows_per_shard=dist.min_rows_per_shard,
+            )
+        _DIST_BVP_CACHE.put(key, bvp)
+    return bvp or None
+
+
+def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev, dist=None):
+    """The three component solves one after the other (``PoissonBVP``, or
+    the sharded engine under ``dist``); ``u0s`` is emptied as they go.
+    Returns (A, infos)."""
     comp_info = []
     comps = []
     for comp, bcs in enumerate(bcs_list):
         opts = options
         if comp == 2 and not options.honor_ms_for_az:
             opts = dataclasses.replace(options, ms=5)  # quirk Q3 (:685)
-        bvp = get_poisson_bvp(hierarchy, bcs, opts, device=dev)
-        u, info = bvp.solve(
-            u0s[comp], None, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
-            ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
-            name=f"A{'xyz'[comp]}", zero_rhs=True,
-        )
+        name = f"A{'xyz'[comp]}"
+        sbvp = _dist_bvp(hierarchy, bcs, opts, dist) if dist is not None else None
+        if sbvp is not None:
+            u, info = sbvp.solve(u0s[comp], None, zero_rhs=True, name=name)
+            u = u.to(dev)
+        else:
+            bvp = get_poisson_bvp(hierarchy, bcs, opts, device=dev)
+            u, info = bvp.solve(
+                u0s[comp], None, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+                ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+                name=name, zero_rhs=True,
+            )
         u0s[comp] = None
         comp_info.append(info)
         # float32 outputs: downcast early (frees the f64 solution)
@@ -213,6 +247,7 @@ def compute_vector_potential(
     b,
     options: Options = Options(),
     device="cuda",
+    dist=None,
 ) -> Tuple[int, torch.Tensor, torch.Tensor, VectorPotentialInfo]:
     """Compute (ierr, A, B, info) from boundary Bn on ``device``.
 
@@ -222,12 +257,17 @@ def compute_vector_potential(
         boundary faces are read (quirk Q12) — B is recomputed in full.
       options: solver options.
       device: "cuda" (raises without a CUDA device) or "cpu".
+      dist: optional ``parallel.shard.DistConfig`` (module docstring); a
+        mesh whose devices are not of ``device``'s type raises ValueError.
 
     Returns:
       ierr (max over all nine sub-solves), A and B as (3, nz, ny, nx)
       tensors on ``device``, and the per-solve diagnostics.
     """
     dev = resolve_device(device)
+    if dist is not None and any(torch.device(d).type != dev.type for d in dist.mesh.devices):
+        raise ValueError(f"dist.mesh devices {dist.mesh.devices} do not match "
+                         f"device={str(device)!r}")
     t0 = time.perf_counter()
     phases: dict = {}
     t_last = [t0]
@@ -306,14 +346,20 @@ def compute_vector_potential(
         for hierarchy, faces_in_group in groups.items():
             rhss = [chi_rhs[f] for f in faces_in_group]
             u0s = [torch.zeros_like(r) for r in rhss]
-            bvp = get_poisson_bvp(hierarchy, (("N", "N"), ("N", "N")), options, device=dev)
-            us, infos = bvp.solve_batch(
-                u0s, rhss, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
-                ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
-                names=[f"chi_face{f}" for f in faces_in_group],
-            )
+            names = [f"chi_face{f}" for f in faces_in_group]
+            bcs2 = (("N", "N"), ("N", "N"))
+            sbvp = _dist_bvp(hierarchy, bcs2, options, dist) if dist is not None else None
+            if sbvp is not None:
+                us, infos = sbvp.solve_batch(u0s, rhss, names=names)
+            else:
+                bvp = get_poisson_bvp(hierarchy, bcs2, options, device=dev)
+                us, infos = bvp.solve_batch(
+                    u0s, rhss, vc_tol=options.vc_tol, ex_tol=options.ex_tol,
+                    ncycles_max=options.ncycles_max, niterex_max=options.niterex_max,
+                    names=names,
+                )
             for k, f in enumerate(faces_in_group):
-                chi[f] = us[k]
+                chi[f] = us[k].to(dev)
                 chi_info[f] = infos[k]
         _mark("chi")
 
@@ -339,7 +385,7 @@ def compute_vector_potential(
     )
     with torch.profiler.record_function(SOLVE3D_RANGE):
         u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
-        if _batch_components(options, mode, (nz, ny, nx), dev):
+        if dist is None and _batch_components(options, mode, (nz, ny, nx), dev):
             key = (hierarchy, bcs_list, dataclasses.astuple(options), str(dev))
             mbs = _MBS_CACHE.get(key)
             if mbs is None:
@@ -351,7 +397,8 @@ def compute_vector_potential(
             del u0
             A = A.to(out_dtype) if out_dtype == torch.float32 else A
         else:
-            A, comp_info = _solve_components(u0s, hierarchy, bcs_list, options, out_dtype, dev)
+            A, comp_info = _solve_components(u0s, hierarchy, bcs_list, options, out_dtype, dev,
+                                             dist)
         _mark("solve3d")
 
     # ---- flux-balance correction + curl (:453-477)

@@ -33,7 +33,10 @@ def test_import_leaves_jax_out():
     code = ("import sys, ndsm_tpu_torch, ndsm_tpu_torch.api, ndsm_tpu_torch.convert, "
             "ndsm_tpu_torch.ops.zc, ndsm_tpu_torch.ops.df, ndsm_tpu_torch.ops.fused, "
             "ndsm_tpu_torch.ops.compact, ndsm_tpu_torch.ops.stencils_compact, "
-            "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build; "
+            "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build, "
+            "ndsm_tpu_torch.ops.zc_sharded, ndsm_tpu_torch.ops.df_sharded, "
+            "ndsm_tpu_torch.parallel.shard, ndsm_tpu_torch.parallel.collectives, "
+            "ndsm_tpu_torch.parallel.sm_engine; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -178,9 +181,6 @@ def test_batch_components_auto_is_sequential_on_cpu():
 
 def test_unported_arguments_raise():
     x = np.linspace(0, 1, 8)
-    b = np.zeros((3, 8, 8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ndsm_tpu_torch.vector_potential(x, x, x, b, dist=object(), device="cpu")
     h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x, x))
     bvp = ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -198,6 +198,24 @@ def test_kernel_sources_packaged():
     """The CUDA sources ship with the package (pyproject package-data)."""
     names = {p.name for p in (PKG / "csrc").iterdir()}
     assert {"zc_smooth.cu", "defect.cu", "fused_smooth.cu", "compact_smooth.cu",
-            "stencil.cuh"} <= names
+            "zc_sharded.cu", "stencil.cuh"} <= names
     text = (REPO / "pyproject.toml").read_text()
     assert '"ndsm_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
+
+
+def test_dist_runs_and_meshes_take_no_device_on_their_own():
+    """dist= is ported: it runs on a mesh of the caller's devices.
+    make_mesh(n) alone takes n CUDA devices and raises when there are
+    fewer; a mesh on the CPU does not run a device="cuda" call."""
+    from ndsm_tpu_torch.parallel.shard import DistConfig, make_mesh
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        make_mesh(have + 1)
+    x = np.linspace(0, 1, 8)
+    b = np.zeros((3, 8, 8, 8))
+    dist = DistConfig(make_mesh(2, devices=["cpu"] * 2))
+    ierr, A, B = ndsm_tpu_torch.vector_potential(x, x, x, b, dist=dist, device="cpu")
+    assert ierr == 0 and A.shape == B.shape == (3, 8, 8, 8)
+    with pytest.raises((RuntimeError, ValueError)):  # no card, or a mismatched mesh
+        ndsm_tpu_torch.vector_potential(x, x, x, b, dist=dist, device="cuda")
