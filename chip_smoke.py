@@ -50,35 +50,44 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      exactly the dense route's of the same batching.  Each route runs three times
      warm without the profiler (once counted, twice in turns); paths 1, 1b
      and 3 run once more under the profiler.
-     The sharded kernels (B10 and B11 of the sharded engine) on the blocks
-     of a level cut over 2 or 4 shards on the one card and halo-extended by
-     the port's collectives: 220^3 over 2 (110 planes) and 4 (55 planes,
-     odd offsets) and 256^3 over 4, Ax and Az BCs (Dirichlet and Neumann z
-     faces): B10 (ns 1, 2, 5, with and without the residual) and B11 (its
-     four forms) against their plain versions on the first, middle and last
-     shard, the stitched shards against the unsharded zc_smooth_3d /
+     The sharded kernels (B10 and B11 of the sharded engine, and their
+     (z, y) forms B10y and B11y) on the blocks of a level cut over a z mesh
+     or a (z, y) mesh on the one card and halo-extended by the port's
+     collectives (z, then y on the z-extended blocks): 220^3 over 2 (110
+     planes) and 4 (55 planes, odd offsets) and 256^3 over 4 on a z mesh,
+     Ax and Az BCs (Dirichlet and Neumann z faces); 220^3 over 2 x 2
+     (110 x 110) and 4 x 2 (55 x 110) and 256^3 over 4 x 2 (64 x 128) on a
+     (z, y) mesh, Ax, Az and Ay BCs (Neumann y faces too): each kernel (ns
+     1, 2, 5, with and without the residual; the defect in its four forms)
+     against its plain version on a corner, an inner and the last shard,
+     the stitched shards against the unsharded zc_smooth_3d /
      zc_smooth_residual_3d / df_residual_3d of the whole level, and the
      engine's passes of width 2 (width 1 on 256^3's 4-plane blocks) with
      their exchanges against the unsharded 5-sweep kernels; all bitwise.
-     Timed at path 4's level 0.
+     Timed at the level 0 of paths 4 and 4b (shard 0 with its halo).
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
      error against the exact solution falls as h^2 (ratio 3.5-4.5).
      Path 4: ``vector_potential(..., dist=DistConfig(make_mesh(2,
-     devices=["cuda:0"] * 2)))`` at 22^3 and 220^3, mixed: golden digits
-     exact, cycles within 1 of path 1b per chi face and component,
-     max|A_dist - A_1b| <= 5e-9, B10 and B11 launched, no plain sharded 3D
-     route and no plain version on the card, the messages and bytes of a
-     warm call printed; timed in turns with path 1b.  Path 5:
-     ``ShardedPoissonBVP`` at 256^3 over 4 shards, Ax BCs, mixed, held to
-     ``PoissonBVP`` on the card (cycles within 1, max|u_sh - u| <= 5e-9).
+     devices=["cuda:0"] * 2)))`` and path 4b: ``dist=DistConfig(
+     make_mesh_nd((2, 2), devices=["cuda:0"] * 4), ("z", "y"))``, each at
+     22^3 and 220^3, mixed: golden digits exact, cycles within 1 of path 1b
+     per chi face and component, max|A_dist - A_1b| <= 5e-9, their mesh's
+     per-shard kernels launched (B10/B11, or B10y/B11y) and the other
+     mesh's not, no plain sharded 3D route and no plain version on the
+     card, the messages and bytes of a warm call printed, max|A_4b - A_4|
+     printed; timed in turns with path 1b.  Paths 5 and 5b:
+     ``ShardedPoissonBVP`` at 256^3, Ax BCs, mixed, over a z mesh of 4 and
+     a (z, y) mesh of 4 x 2, held to ``PoissonBVP`` on the card (cycles
+     within 1, max|u_sh - u| <= 5e-9).
   5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -720,7 +729,8 @@ def run(n, batch="auto", smoother="auto", dist=None):
     phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
     route = (f"batch_components={batch}, smoother={smoother}, lanes "
              f"{info.components[0].batch_size}"
-             + ("" if dist is None else f", dist over {len(dist.mesh.devices)} shards"))
+             + ("" if dist is None else f", dist over a {'x'.join(map(str, dist.mesh.shape))} "
+                f"{dist.axis_names} mesh"))
     digits = f"{ea:.5e} {eb:.5e}" == f"{g_ea:.5e} {g_eb:.5e}"
     log(f"[main] {n}^3 mixed ({route}): Ea_max {ea:.5e} (golden {g_ea:.5e})  Eb_max "
         f"{eb:.5e} (golden {g_eb:.5e})  gate {'pass' if ok else 'FAIL'}, golden digits "
@@ -915,12 +925,20 @@ def phase_neumann_3d():
 
 # -- the sharded engine's per-shard kernels and paths 4 and 5
 
-SHARD_CONFIGS = ((220, 2), (220, 4), (256, 4))  # (n, shards): 110, 55 (odd) and 64 planes
-SHARD_BCS = ("Ax", "Az")  # Dirichlet z faces, and Neumann ones (the mirror planes)
+# (n, mesh shape): blocks of 110, 55 (odd offsets) and 64 planes on a z mesh;
+# 110 x 110, 55 x 110 and 64 x 128 on a (z, y) mesh
+SHARD_CONFIGS = ((220, (2,)), (220, (4,)), (256, (4,)), (220, (2, 2)), (220, (4, 2)),
+                 (256, (4, 2)))
+# Dirichlet z faces, and Neumann ones (the mirror planes); on a (z, y) mesh
+# also Neumann y faces (Ay)
+SHARD_BCS = {1: ("Ax", "Az"), 2: ("Ax", "Az", "Ay")}
 PATH4 = ("zc_smooth_sharded_3d", "zc_smooth_residual_sharded_3d", "df_residual_sharded_3d",
          "df_update_residual_sharded_3d", "zc_smooth_3d", "zc_smooth_residual_3d",
          "zc_smooth_cor_3d", "v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
 PATH5 = PATH4[:7]
+ZY = tuple(k + "_zy" for k in PATH4[:4])  # B10y and B11y, the (z, y) mesh's forms
+PATH4B = ZY + PATH4[4:]
+PATH5B = ZY + PATH4[4:7]
 
 
 def hierarchy_of(n: int):
@@ -934,19 +952,74 @@ def hierarchy_of(n: int):
     return GridHierarchy.from_mesh(build_test_mesh(n)[::-1] if n == 220 else (x, x, x))
 
 
+class Cut:
+    """A level of n^3 cut over a z mesh or a (z, y) mesh on one device:
+    blocks, their halo extension (z, then y on the z-extended blocks), the
+    per-shard kernels' names and position arguments, and the join."""
+
+    def __init__(self, n, grid, dev):
+        from ndsm_tpu_torch.parallel.shard import make_mesh_nd
+
+        self.n, self.grid = n, tuple(grid)
+        self.zy = len(self.grid) == 2
+        self.mesh = make_mesh_nd(self.grid, ("z", "y")[: len(self.grid)],
+                                 devices=[dev] * math.prod(self.grid))
+        self.devs = self.mesh.devices
+        self.local = tuple(n // g for g in self.grid)
+        corner, last = (0,) * len(self.grid), tuple(g - 1 for g in self.grid)
+        inner = (self.grid[0] // 2,) + (0,) * (len(self.grid) - 1)
+        self.picks = sorted({self.mesh.index(c) for c in (corner, inner, last)})
+        shape = "x".join(map(str, self.local))
+        self.where = (f"{n}^3 over {' x '.join(map(str, self.grid))} shards of {shape}"
+                      + (" planes" if not self.zy else ""))
+
+    def key(self, base):
+        return base + ("_zy" if self.zy else "")
+
+    def shard(self, v):
+        from ndsm_tpu_torch.parallel import collectives as C
+
+        return C.shard(v, self.devs, 0, self.grid)
+
+    def join(self, blocks):
+        from ndsm_tpu_torch.parallel import collectives as C
+
+        return C.unshard(blocks, self.devs, 0, self.grid)
+
+    def extend(self, blocks, H):
+        from ndsm_tpu_torch.parallel import collectives as C
+
+        for ax, nm in enumerate(self.mesh.axis_names):
+            blocks = C.extend_block(blocks, self.devs, ax, H, self.mesh.lines(nm))
+        return blocks
+
+    def unextend(self, blocks, H):
+        from ndsm_tpu_torch.parallel import collectives as C
+
+        for ax in range(len(self.grid)):
+            blocks = C.unextend_block(blocks, ax, H)
+        return blocks
+
+    def where_args(self, i, H=None):
+        """The position arguments of block i: (z0, nz_global[, H]) on a z
+        mesh, ((z0, y0), (n, n)[, (H, H)]) on a (z, y) mesh."""
+        off = tuple(c * l for c, l in zip(self.mesh.coords(i), self.local))
+        args = (off, (self.n,) * len(off)) if self.zy else (off[0], self.n)
+        return args + (() if H is None else ((H, H) if self.zy else H,))
+
+
 def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
-    """B10 and B11 on the blocks of a sharded level, halo-extended by the
-    port's own collectives: each shard's kernel call against its plain
-    version (first, middle and last shard), the stitched shards against the
-    unsharded kernel of the whole level, and the engine's width passes with
-    their exchanges against the unsharded ms-sweep kernels; all bitwise."""
+    """B10/B11 (z mesh) and B10y/B11y ((z, y) mesh) on the blocks of a
+    sharded level, halo-extended by the port's own collectives: each
+    shard's kernel call against its plain version (a corner, an inner and
+    the last shard), the stitched shards against the unsharded kernel of
+    the whole level, and the engine's width passes with their exchanges
+    against the unsharded ms-sweep kernels; all bitwise."""
     import numpy as np
     import torch
 
     from ndsm_tpu_torch import Options
     from ndsm_tpu_torch.ops import df, df_sharded, zc, zc_sharded
-    from ndsm_tpu_torch.parallel import collectives as C
-    from ndsm_tpu_torch.parallel.shard import make_mesh
     from ndsm_tpu_torch.parallel.sm_engine import ShardedPoissonBVP
 
     rng = np.random.default_rng(2026)
@@ -958,57 +1031,59 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
     def parts(x):
         return x if isinstance(x, tuple) else (x,)
 
-    for n, nsh in configs:
+    for n, grid in configs:
         h = hierarchy_of(n)
-        mesh = make_mesh(nsh, devices=[dev] * nsh)
-        devs = mesh.devices
+        cut = Cut(n, grid, dev)
         shape, dq = h.shapes[0], h.dq[0]
-        nzl = n // nsh
-        picks = sorted({0, nsh // 2, nsh - 1})
-        where = f"{n}^3 over {nsh} shards of {nzl} planes"
-        for tag in SHARD_BCS:
+        where = cut.where
+        for tag in SHARD_BCS[len(grid)]:
             bcs = BC_SETS[tag]
             u, rhs = rand(shape), rand(shape)
-            ub, rb = C.shard(u, devs, 0), C.shard(rhs, devs, 0)
+            ub, rb = cut.shard(u), cut.shard(rhs)
             for ns in SWEEPS:
                 for res in (False, True):
-                    key = "zc_smooth_residual_sharded_3d" if res else "zc_smooth_sharded_3d"
+                    base = "zc_smooth_residual_sharded_3d" if res else "zc_smooth_sharded_3d"
+                    key = cut.key(base)
                     fn, plain = getattr(zc_sharded, key), getattr(zc_sharded, key + "_plain")
                     H = 2 * ns + res
-                    ue, re = C.extend_block(ub, devs, 0, H), C.extend_block(rb, devs, 0, H)
-                    outs = [fn(ue[i], re[i], dq, bcs, ns, i * nzl, n, H) for i in range(nsh)]
-                    for i in picks:
-                        want = plain(ue[i], re[i], dq, bcs, ns, i * nzl, n, H)
+                    ue, re = cut.extend(ub, H), cut.extend(rb, H)
+                    outs = [fn(ue[i], re[i], dq, bcs, ns, *cut.where_args(i, H=H))
+                            for i in range(len(ue))]
+                    for i in cut.picks:
+                        want = plain(ue[i], re[i], dq, bcs, ns, *cut.where_args(i, H=H))
                         for part, g, w in zip("ur", parts(outs[i]), parts(want)):
                             stats.note(key, *compare(
                                 f"{key}({part}) {where} {tag} ns={ns} shard {i}", g, w))
                     whole = (zc.zc_smooth_residual_3d if res else zc.zc_smooth_3d)(
                         u, rhs, dq, bcs, ns)
-                    stitched = [torch.cat(p) for p in zip(*[parts(o) for o in outs])]
+                    stitched = [cut.join(list(p)) for p in zip(*[parts(o) for o in outs])]
                     for part, g, w in zip("ur", stitched, parts(whole)):
                         stats.note(key, *compare(
                             f"stitched {key}({part}) {where} {tag} ns={ns} vs the unsharded "
                             "kernel", g, w))
                     del ue, re, outs, whole, stitched
-            # the engine's passes (width 2, or 1 on blocks of < 6 planes) with
-            # their exchanges, MS sweeps, against the unsharded kernels
-            sb = ShardedPoissonBVP(h, bcs, Options(precision="mixed"), mesh=mesh)
+            # the engine's passes (width 2, or 1 on blocks of < 6 points along
+            # a partitioned axis) with their exchanges, MS sweeps, against the
+            # unsharded kernels
+            sb = ShardedPoissonBVP(h, bcs, Options(precision="mixed"), mesh=cut.mesh,
+                                   axis_names=cut.mesh.axis_names)
             for level in sorted({0, sb.seam - 1}):
                 lshape, ldq = h.shapes[level], h.dq[level]
                 lu, lr = (u, rhs) if level == 0 else (rand(lshape), rand(lshape))
-                lub, lrb = C.shard(lu, devs, 0), C.shard(lr, devs, 0)
-                lab = (f"{lshape[0]}^3 over {nsh} shards of {lshape[0] // nsh} planes {tag} "
+                lub, lrb = cut.shard(lu), cut.shard(lr)
+                lab = (f"{lshape[0]}^3 over {' x '.join(map(str, grid))} shards of "
+                       f"{'x'.join(str(e) for e in sb._local(level)[:len(grid)])} {tag} "
                        f"ms={MS}, passes of width {sb._pass_width(level, lu)}")
-                stats.note("zc_smooth_sharded_3d", *compare(
+                stats.note(cut.key("zc_smooth_sharded_3d"), *compare(
                     f"engine smoothing {lab} vs zc_smooth_3d",
-                    torch.cat(sb._sh_smooth(lub, lrb, level, MS)),
+                    cut.join(sb._sh_smooth(lub, lrb, level, MS)),
                     zc.zc_smooth_3d(lu, lr, ldq, bcs, MS)))
                 got = sb._sh_smooth_residual(lub, lrb, level, MS)
                 want = zc.zc_smooth_residual_3d(lu, lr, ldq, bcs, MS)
                 for part, g, w in zip("ur", got, want):
-                    stats.note("zc_smooth_residual_sharded_3d", *compare(
+                    stats.note(cut.key("zc_smooth_residual_sharded_3d"), *compare(
                         f"engine smoothing + residual({part}) {lab} vs zc_smooth_residual_3d",
-                        torch.cat(g), w))
+                        cut.join(g), w))
             # B11 in the regime it runs in: a smooth O(1) iterate, small noise
             zz, yy, xx = np.meshgrid(*h.meshes[0], indexing="ij")
             u64 = torch.as_tensor(
@@ -1016,128 +1091,148 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
                 + 1e-6 * rng.standard_normal(shape), dtype=torch.float64, device=dev)
             del zz, yy, xx
             rhs64, e32 = rand(shape, torch.float64), 1e-4 * rand(shape)
-            ue64 = C.extend_block(C.shard(u64, devs, 0), devs, 0, 1)
-            rb64, ee = C.shard(rhs64, devs, 0), C.extend_block(C.shard(e32, devs, 0), devs, 0, 1)
+            ue64, rb64, ee = cut.extend(cut.shard(u64), 1), cut.shard(rhs64), \
+                cut.extend(cut.shard(e32), 1)
             for form, with_rhs, upd in (("zero-rhs", False, False), ("rhs", True, False),
                                         ("zero-rhs+update", False, True),
                                         ("rhs+update", True, True)):
-                key = "df_update_residual_sharded_3d" if upd else "df_residual_sharded_3d"
+                key = cut.key("df_update_residual_sharded_3d" if upd
+                              else "df_residual_sharded_3d")
                 outs = []
-                for i in range(nsh):
+                for i in range(len(ue64)):
                     args = ((ue64[i], rb64[i] if with_rhs else None)
-                            + ((ee[i],) if upd else ()) + (dq, bcs, i * nzl, n))
+                            + ((ee[i],) if upd else ()) + (dq, bcs) + cut.where_args(i))
                     outs.append(getattr(df_sharded, key)(*args))
-                    if i in picks:
+                    if i in cut.picks:
                         want = getattr(df_sharded, key + "_plain")(*args)
                         for part, g, w in zip(("r32", "max", "u"), outs[i], want):
                             stats.note(key, *compare(
                                 f"{key} {form} ({part}) {where} {tag} shard {i}", g, w))
                 whole = df.df_residual_3d(u64, rhs64 if with_rhs else None,
                                           e32 if upd else None, dq, bcs)
-                got = (torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs]).max())
+                got = (cut.join([o[0] for o in outs]), torch.stack([o[1] for o in outs]).max())
                 if upd:
-                    got += (torch.cat(C.unextend_block([o[2] for o in outs], 0, 1)),)
+                    got += (cut.join(cut.unextend([o[2] for o in outs], 1)),)
                 for part, g, w in zip(("r32", "max", "u"), got, whole):
                     stats.note(key, *compare(
                         f"stitched {key} {form} ({part}) {where} {tag} vs df_residual_3d", g, w))
-            log(f"[sharded] {where} {tag}: B10 (ns in {SWEEPS}, both forms) and B11 (four "
-                "forms) bitwise equal to their plain versions on the first, middle and last "
-                "shard; stitched, and as the engine's passes, bitwise equal to the unsharded "
-                "kernels")
-            if n == 220 and nsh == 2 and tag == "Ax":  # path 4's level 0
-                _time_sharded(stats, u, rhs, ub, rb, u64, ue64, ee, dq, bcs, n, nzl, devs)
+            b10, b11 = ("B10y", "B11y") if cut.zy else ("B10", "B11")
+            log(f"[sharded] {where} {tag}: {b10} (ns in {SWEEPS}, both forms) and {b11} (four "
+                "forms) bitwise equal to their plain versions on a corner, an inner and the "
+                "last shard; stitched, and as the engine's passes, bitwise equal to the "
+                "unsharded kernels")
+            if n == 220 and grid in ((2,), (2, 2)) and tag == "Ax":
+                _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs)  # paths 4 / 4b level 0
             del u, rhs, ub, rb, u64, rhs64, e32, ue64, rb64, ee, outs, whole, got
 
 
-def _time_sharded(stats, u, rhs, ub, rb, u64, ue64, ee, dq, bcs, n, nzl, devs):
-    """Times of B10 and B11 on shard 0 of path 4's level 0, as path 4 calls
-    them (2-sweep passes over a 4-plane halo; the 1-sweep residual pass
-    over 3; the zero-rhs defect with and without the update)."""
+def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
+    """Times of the per-shard kernels on shard 0 of level 0 of path 4 (z
+    mesh of 2) or path 4b ((z, y) mesh of 2 x 2), as the path calls them
+    (2-sweep passes over a 4-point halo; the 1-sweep residual pass over 3;
+    the zero-rhs defect with and without the update).  Work is counted
+    from the extended block: its halo points are read and swept too."""
     from ndsm_tpu_torch.ops import df_sharded, zc_sharded
-    from ndsm_tpu_torch.parallel import collectives as C
 
-    real = nzl * n * n
-    for key, ns in (("zc_smooth_sharded_3d", 2), ("zc_smooth_residual_sharded_3d", 1)):
-        res = key.startswith("zc_smooth_residual")
+    real = ub[0].numel()
+    lab = f"{cut.where}, shard 0"
+    for base, ns in (("zc_smooth_sharded_3d", 2), ("zc_smooth_residual_sharded_3d", 1)):
+        key = cut.key(base)
+        res = base.startswith("zc_smooth_residual")
         H = 2 * ns + res
-        ue, re = C.extend_block(ub, devs, 0, H)[0], C.extend_block(rb, devs, 0, H)[0]
+        ue, re = cut.extend(ub, H)[0], cut.extend(rb, H)[0]
         ext = ue.numel()
         fn, plain = getattr(zc_sharded, key), getattr(zc_sharded, key + "_plain")
         work = (4 * (2 * ext + (2 if res else 1) * real), 10 * ns * ext + (13 * real if res else 0),
                 PEAK_F32)
-        stats.timed(key, lambda: fn(ue, re, dq, bcs, ns, 0, n, H),
-                    lambda: plain(ue, re, dq, bcs, ns, 0, n, H), real, ns,
-                    f"{n}^3 shard 0 of 2 (+{H} halo planes) ns={ns}", True, work=work)
+        args = (dq, bcs, ns) + cut.where_args(0, H=H)
+        stats.timed(key, lambda: fn(ue, re, *args), lambda: plain(ue, re, *args), real, ns,
+                    f"{lab} (+{H} halo) ns={ns}", True, work=work)
     ext = ue64[0].numel()
-    for key, args, work in (
-            ("df_residual_sharded_3d", (ue64[0], None, dq, bcs, 0, n),
+    for base, args, work in (
+            ("df_residual_sharded_3d", (ue64[0], None, dq, bcs) + cut.where_args(0),
              (8 * ext + 4 * real, 14 * real, PEAK_F64)),
-            ("df_update_residual_sharded_3d", (ue64[0], None, ee[0], dq, bcs, 0, n),
+            ("df_update_residual_sharded_3d", (ue64[0], None, ee[0], dq, bcs) + cut.where_args(0),
              (20 * ext + 4 * real, 14 * real + ext, PEAK_F64))):
+        key = cut.key(base)
         fn, plain = getattr(df_sharded, key), getattr(df_sharded, key + "_plain")
         stats.timed(key, lambda: fn(*args), lambda: plain(*args), real, 1,
-                    f"{n}^3 shard 0 of 2 (+1 halo plane) zero-rhs", True, work=work)
+                    f"{lab} (+1 halo) zero-rhs", True, work=work)
 
 
-def phase_dist_path(ref):
-    """Path 4: vector_potential with dist over two shards on the card, held
-    to path 1b (the same solves on one device)."""
+def phase_dist_paths(ref):
+    """Path 4 (vector_potential with dist over a z mesh of two shards) and
+    path 4b (over a (z, y) mesh of 2 x 2 shards) on the card, each held to
+    path 1b (the same solves on one device), and timed in turns."""
     import numpy as np
     import torch
 
     from ndsm_tpu_torch import ops
     from ndsm_tpu_torch.parallel import collectives as C
     from ndsm_tpu_torch.parallel import sm_engine
-    from ndsm_tpu_torch.parallel.shard import DistConfig, make_mesh
+    from ndsm_tpu_torch.parallel.shard import DistConfig, make_mesh, make_mesh_nd
 
     A_1b, info_1b = ref
-    dist = DistConfig(make_mesh(2, devices=["cuda:0"] * 2))
-    run(22, dist=dist)
-    run(220, dist=dist)  # cold: first use of the sharded engines
-    ops.reset_launch_counts()
-    sm_engine.reset_plain_route_counts()
-    C.reset_counts()
-    wall, info, A_d, _ = run(220, dist=dist)
-    torch.cuda.synchronize()
-    launches, msgs, routes = ops.launch_counts(), C.counts(), sm_engine.plain_route_counts()
-    check_counts("path 4: 220^3 warm, dist over 2 shards", launches, ops.plain_cuda_counts(),
-                 PATH4)
-    log(f"[dist] path 4 warm call: {msgs['messages']} messages, {msgs['bytes']} bytes between "
-        f"the shards; plain sharded routes on the card {routes}")
-    if routes["half_sweep_3d"] or routes["residual_3d"]:
-        raise AssertionError(f"path 4 ran a plain sharded 3D route on the card: {routes}")
-    da = float(np.abs(A_d - A_1b).max())
-    log(f"[dist] 220^3 path 4 vs path 1b: max|A_dist - A_1b| {da:.3e}")
-    for s_d, s_b in zip(info.chi + info.components, info_1b.chi + info_1b.components):
-        log(f"[dist]   {s_d.name}: cycles {s_d.cycles} / {s_b.cycles}, du "
-            f"{s_d.du_last:.6e} / {s_b.du_last:.6e}")
-        if abs(s_d.cycles - s_b.cycles) > 1:
-            raise AssertionError(f"{s_d.name}: cycles differ by more than 1 from path 1b")
-    if not da <= 5e-9:
-        raise AssertionError(f"max|A_dist - A_1b| = {da} > 5e-9")
-    del A_d, A_1b
-    turns = {"1b": [], "4": []}
-    for tag in ("1b", "4", "4", "1b"):
-        w, inf, _, _ = run(220, "off", dist=dist if tag == "4" else None)
+    dists = {"4": DistConfig(make_mesh(2, devices=["cuda:0"] * 2)),
+             "4b": DistConfig(make_mesh_nd((2, 2), ("z", "y"), devices=["cuda:0"] * 4),
+                              ("z", "y"))}
+    # each path launches its mesh's per-shard kernels and not the other's
+    routes = {"4": (PATH4, ZY), "4b": (PATH4B, PATH4[:4])}
+    launches, A = {}, {}
+    for tag, dist in dists.items():
+        where = f"path {tag}: 220^3 warm, dist over a {'x'.join(map(str, dist.mesh.shape))} mesh"
+        run(22, dist=dist)
+        run(220, dist=dist)  # cold: first use of the sharded engines
+        ops.reset_launch_counts()
+        sm_engine.reset_plain_route_counts()
+        C.reset_counts()
+        wall, info, A[tag], _ = run(220, dist=dist)
+        torch.cuda.synchronize()
+        launches[tag], msgs = ops.launch_counts(), C.counts()
+        plain_routes = sm_engine.plain_route_counts()
+        check_counts(where, launches[tag], ops.plain_cuda_counts(), *routes[tag])
+        log(f"[dist] path {tag} warm call: {msgs['messages']} messages, {msgs['bytes']} bytes "
+            f"between the shards; plain sharded routes on the card {plain_routes}")
+        if plain_routes["half_sweep_3d"] or plain_routes["residual_3d"]:
+            raise AssertionError(f"path {tag} ran a plain sharded 3D route on the card: "
+                                 f"{plain_routes}")
+        da = float(np.abs(A[tag] - A_1b).max())
+        log(f"[dist] 220^3 path {tag} vs path 1b: max|A_dist - A_1b| {da:.3e}")
+        for s_d, s_b in zip(info.chi + info.components, info_1b.chi + info_1b.components):
+            log(f"[dist]   {s_d.name}: cycles {s_d.cycles} / {s_b.cycles}, du "
+                f"{s_d.du_last:.6e} / {s_b.du_last:.6e}")
+            if abs(s_d.cycles - s_b.cycles) > 1:
+                raise AssertionError(f"path {tag} {s_d.name}: cycles differ by more than 1 "
+                                     "from path 1b")
+        if not da <= 5e-9:
+            raise AssertionError(f"path {tag}: max|A_dist - A_1b| = {da} > 5e-9")
+    log(f"[dist] 220^3 path 4b vs path 4: max|A_2d - A_path4| "
+        f"{float(np.abs(A['4b'] - A['4']).max()):.3e}")
+    del A, A_1b
+    turns = {"1b": [], "4": [], "4b": []}
+    for tag in ("1b", "4", "4b", "4b", "4", "1b"):
+        w, inf, _, _ = run(220, "off", dist=dists.get(tag))
         turns[tag].append((w, inf.phases))
     for tag, tv in turns.items():
         log(f"[dist] 220^3 path {tag} in turns: wall " + " ".join(f"{w:.4f}" for w, _ in tv)
             + " s; phases (s) " + " | ".join(
                 " ".join(f"{k}={v:.4f}" for k, v in ph.items()) for _, ph in tv))
-    return launches
+    return launches["4"], launches["4b"]
 
 
-def phase_sharded_solve():
-    """Path 5: ShardedPoissonBVP at 256^3 over four shards on the card
-    (blocks of 64, 32, 16, 8 and 4 planes; the last level takes width-1
-    passes), held to PoissonBVP on the same problem."""
+def phase_sharded_solves():
+    """Path 5: ShardedPoissonBVP at 256^3 over a z mesh of four shards on
+    the card (blocks of 64, 32, 16, 8 and 4 planes; the last level takes
+    width-1 passes); path 5b: the same over a (z, y) mesh of 4 x 2 (blocks
+    of 64 x 128 down to 4 x 8); each held to PoissonBVP on the same
+    problem."""
     import numpy as np
     import torch
 
     from ndsm_tpu_torch import Options, PoissonBVP, ops
     from ndsm_tpu_torch.parallel import collectives as C
     from ndsm_tpu_torch.parallel import sm_engine
-    from ndsm_tpu_torch.parallel.shard import make_mesh
+    from ndsm_tpu_torch.parallel.shard import make_mesh_nd
 
     n, bcs = 256, BC_SETS["Ax"]
     h = hierarchy_of(n)
@@ -1146,39 +1241,52 @@ def phase_sharded_solve():
           * np.cos(np.pi * x)[None, None, :])
     rhs = -3.0 * np.pi**2 * ue
     u0 = np.zeros_like(rhs)
-    sb = sm_engine.ShardedPoissonBVP(h, bcs, Options(precision="mixed"),
-                                     mesh=make_mesh(4, devices=["cuda:0"] * 4))
-    plan = ", ".join(f"{h.shapes[l][0]}^3 {'sharded' if l < sb.seam else 'replicated'}"
-                     + (f" (width {sb._pass_width(l, torch.zeros((), dtype=torch.float32))})"
-                        if l < sb.seam else "") for l in range(h.ngrids))
-    log(f"[sharded] path 5 level plan: {plan}")
-    sb.solve(u0, rhs)  # cold
-    ops.reset_launch_counts()
-    sm_engine.reset_plain_route_counts()
-    C.reset_counts()
-    t0 = time.perf_counter()
-    u_sh, info_sh = sb.solve(u0, rhs)
-    torch.cuda.synchronize()
-    wall_sh = time.perf_counter() - t0
-    launches, msgs, routes = ops.launch_counts(), C.counts(), sm_engine.plain_route_counts()
-    check_counts("path 5: 256^3 over 4 shards", launches, ops.plain_cuda_counts(), PATH5)
-    if routes["half_sweep_3d"] or routes["residual_3d"]:
-        raise AssertionError(f"path 5 ran a plain sharded 3D route on the card: {routes}")
     bvp = PoissonBVP(h, bcs, Options(precision="mixed"), device="cuda")
     bvp.solve(u0, rhs)  # cold
     t0 = time.perf_counter()
     u, info = bvp.solve(u0, rhs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    d = float((u_sh - u).abs().max())
     err = float((u.cpu() - torch.as_tensor(ue)).abs().max())
-    log(f"[sharded] path 5 256^3 Ax mixed: sharded {info_sh.cycles} cycles in {wall_sh:.4f} s "
-        f"({msgs['messages']} messages, {msgs['bytes']} bytes), PoissonBVP {info.cycles} "
-        f"cycles in {wall:.4f} s; max|u_sh - u| {d:.3e}; max|u - exact| {err:.3e}")
-    if info_sh.ierr or abs(info_sh.cycles - info.cycles) > 1 or not d <= 5e-9:
-        raise AssertionError(f"path 5: ierr {info_sh.ierr}, cycles {info_sh.cycles} / "
-                             f"{info.cycles}, max|u_sh - u| {d}")
-    return launches
+    launches = {}
+    for tag, grid, need in (("5", (4,), PATH5), ("5b", (4, 2), PATH5B)):
+        names = ("z", "y")[: len(grid)]
+        sb = sm_engine.ShardedPoissonBVP(
+            h, bcs, Options(precision="mixed"), axis_names=names,
+            mesh=make_mesh_nd(grid, names, devices=["cuda:0"] * math.prod(grid)))
+        f32 = torch.zeros((), dtype=torch.float32)
+        plan = ", ".join(
+            f"{h.shapes[l][0]}^3 " + (f"sharded, blocks of "
+                                      f"{'x'.join(map(str, sb._local(l)[:len(grid)]))} "
+                                      f"(width {sb._pass_width(l, f32)})"
+                                      if l < sb.seam else "replicated")
+            for l in range(h.ngrids))
+        log(f"[sharded] path {tag} level plan: {plan}")
+        sb.solve(u0, rhs)  # cold
+        ops.reset_launch_counts()
+        sm_engine.reset_plain_route_counts()
+        C.reset_counts()
+        t0 = time.perf_counter()
+        u_sh, info_sh = sb.solve(u0, rhs)
+        torch.cuda.synchronize()
+        wall_sh = time.perf_counter() - t0
+        launches[tag], msgs = ops.launch_counts(), C.counts()
+        routes = sm_engine.plain_route_counts()
+        check_counts(f"path {tag}: 256^3 over a {'x'.join(map(str, grid))} mesh",
+                     launches[tag], ops.plain_cuda_counts(), need)
+        if routes["half_sweep_3d"] or routes["residual_3d"]:
+            raise AssertionError(f"path {tag} ran a plain sharded 3D route on the card: "
+                                 f"{routes}")
+        d = float((u_sh - u).abs().max())
+        log(f"[sharded] path {tag} 256^3 Ax mixed over {'x'.join(map(str, grid))}: sharded "
+            f"{info_sh.cycles} cycles in {wall_sh:.4f} s ({msgs['messages']} messages, "
+            f"{msgs['bytes']} bytes), PoissonBVP {info.cycles} cycles in {wall:.4f} s; "
+            f"max|u_sh - u| {d:.3e}; max|u - exact| {err:.3e}")
+        if info_sh.ierr or abs(info_sh.cycles - info.cycles) > 1 or not d <= 5e-9:
+            raise AssertionError(f"path {tag}: ierr {info_sh.ierr}, cycles {info_sh.cycles} / "
+                                 f"{info.cycles}, max|u_sh - u| {d}")
+        del sb, u_sh
+    return launches["5"], launches["5b"]
 
 
 def main() -> int:
@@ -1200,8 +1308,8 @@ def main() -> int:
     phase_sharded_kernels(stats)
     path1, path1b, path3, path3b, ref1b = phase_main_path()
     path2 = phase_neumann_3d()
-    path4 = phase_dist_path(ref1b)
-    path5 = phase_sharded_solve()
+    path4, path4b = phase_dist_paths(ref1b)
+    path5, path5b = phase_sharded_solves()
     paths = (
         (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
         (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
@@ -1211,6 +1319,10 @@ def main() -> int:
                          "batch_components=off"),
         (PATH4, path4, "vector_potential 220^3 mixed, dist over 2 shards on one card"),
         (PATH5, path5, "ShardedPoissonBVP 256^3 Ax mixed over 4 shards on one card"),
+        (PATH4B, path4b, "vector_potential 220^3 mixed, dist over a 2 x 2 (z, y) mesh on one "
+                         "card"),
+        (PATH5B, path5b, "ShardedPoissonBVP 256^3 Ax mixed over a 4 x 2 (z, y) mesh on one "
+                         "card"),
     )
     kernels = []
     for key, _, _, replaces, source in ops.KERNELS:

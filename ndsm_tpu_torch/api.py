@@ -58,7 +58,10 @@ def vector_potential(
     domain decomposition; sub-problems whose shapes cannot be partitioned
     run on one device).  Its mesh's devices must be of ``device``'s type,
     e.g. ``DistConfig(make_mesh(2, devices=["cuda:0"] * 2))`` on one card
-    or ``make_mesh(4, devices=["cpu"] * 4)`` with ``device="cpu"``.
+    or ``make_mesh(4, devices=["cpu"] * 4)`` with ``device="cpu"``.  A 2-D
+    (z, y) mesh, ``DistConfig(make_mesh_nd((2, 2), devices=["cuda:0"] *
+    4), ("z", "y"))``, partitions the 3D component solves in z and y and
+    the 2D chi faces in z.
     """
     if options is None:
         options = Options(

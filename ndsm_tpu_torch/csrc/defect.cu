@@ -24,18 +24,22 @@
 // below the H100's f64 rate.  The design streams each array once; the
 // neighbour reads hit L1/L2.
 //
-// defect_sharded_f64 is the same defect on one shard of a z-partitioned
-// level (replaces ndsm_tpu/ops/pallas_df.py: df_residual_sharded_3d, its
-// zero_rhs and update variants).  u (and e) are the shard's block extended
-// by one halo plane a side, (nz + 2, ny, nx), filled by the engine with the
-// neighbours' planes or, at the ends of the chain, node-mirror planes; rhs
-// and r32 are the real block (nz, ny, nx).  The update writes v = u + e
-// over the whole extended block (the engine carries it across defect
-// groups), the residual is taken over the real planes only, whose z
-// neighbours are the halo planes, and Dirichlet faces are tested in global
-// z (z0 + z against NZ).  Over the real block r32 equals defect_f64's on
-// the whole level bit for bit: the halo planes hold the values the
-// reflection would read.
+// defect_sharded_f64 is the same defect on one shard of a level partitioned
+// in z, or in z and y (replaces ndsm_tpu/ops/pallas_df.py:
+// df_residual_sharded_3d with parts (0,) and (0, 1), its zero_rhs and
+// update variants).  u (and e) are the shard's block extended by one halo
+// plane a side in z and hy (0 or 1) in y, (nz + 2, ny + 2hy, nx), filled by
+// the engine with the neighbours' planes or, at the ends of a line,
+// node-mirror planes (z first, then y on the z-extended block, so the
+// corners hold the diagonal neighbours' values); rhs and r32 are the real
+// block (nz, ny, nx).  The update writes v = u + e over the whole extended
+// block (the engine carries it across defect groups), the residual is
+// taken over the real points only, whose z and y neighbours on the block's
+// edges are halo points, and Dirichlet faces are tested in global z and y
+// (z0 + kz - 1 against NZ, y0 + ky - hy against NY).  Over the real block
+// r32 equals defect_f64's on the whole level bit for bit: the halo planes
+// hold the values the reflection would read.  The z form passes hy = 0,
+// y0 = 0, NY = ny.
 
 #include "stencil.cuh"
 
@@ -97,24 +101,25 @@ __global__ void defect_sharded_f64(const double* __restrict__ u,
                                    const double* __restrict__ rhs,
                                    float* __restrict__ r32,
                                    float* __restrict__ block_max, int nz,
-                                   int ny, int nx, int z0, int NZ, int dmask,
-                                   double wz, double wy, double wx) {
+                                   int ny, int nx, int hy, int z0, int y0,
+                                   int NZ, int NY, int dmask, double wz,
+                                   double wy, double wx) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long plane = (long long)ny * nx;
+  const int nye = ny + 2 * hy;
   float a = 0.0f;
-  if (p < (long long)(nz + 2) * plane) {
+  if (p < (long long)(nz + 2) * nye * nx) {
     const int x = (int)(p % nx);
     const long long row = p / nx;
-    const int y = (int)(row % ny);
-    const int kz = (int)(row / ny);
+    const int ky = (int)(row % nye);
+    const int kz = (int)(row / nye);
     auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
     const double c = v(p);
     if (u_out) u_out[p] = c;
-    if (kz >= 1 && kz <= nz) {
-      const long long rp = p - plane;
+    if (kz >= 1 && kz <= nz && ky >= hy && ky < ny + hy) {
+      const long long rp = ((long long)(kz - 1) * ny + (ky - hy)) * nx + x;
       float rv = 0.0f;
-      if (!on_dirichlet_face(z0 + kz - 1, y, x, NZ, ny, nx, dmask)) {
-        const Neighbours n = neighbours(kz, y, x, nz + 2, ny, nx);
+      if (!on_dirichlet_face(z0 + kz - 1, y0 + ky - hy, x, NZ, NY, nx, dmask)) {
+        const Neighbours n = neighbours(kz, ky, x, nz + 2, nye, nx);
         const double c2 = 2.0 * c;
         double t = ((v(n.zl) - c2) + v(n.zh)) * wz;
         t = t + ((v(n.yl) - c2) + v(n.yh)) * wy;
@@ -148,13 +153,14 @@ extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
 
 extern "C" int ndsm_defect_sharded_f64(const void* u, const void* e, void* u_out,
                                        const void* rhs, void* r32, void* block_max,
-                                       int nz, int ny, int nx, int z0, int NZ,
-                                       int dmask, double wz, double wy, double wx,
-                                       void* stream) {
-  const long long n = (long long)(nz + 2) * ny * nx;
+                                       int nz, int ny, int nx, int hy, int z0, int y0,
+                                       int NZ, int NY, int dmask, double wz, double wy,
+                                       double wx, void* stream) {
+  const long long n = (long long)(nz + 2) * (ny + 2 * hy) * nx;
   ndsm::defect_sharded_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
-      (float*)r32, (float*)block_max, nz, ny, nx, z0, NZ, dmask, wz, wy, wx);
+      (float*)r32, (float*)block_max, nz, ny, nx, hy, z0, y0, NZ, NY, dmask, wz, wy,
+      wx);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,8 @@ _DEFECT = "ndsm_tpu_torch/csrc/defect.cu"
 #: around the TPU kernel.  The per-shard kernels of the sharded engine
 #: (parallel/sm_engine.py) close the list: the sweeps on a halo-extended
 #: block with and without the fused residual, and the shard's defect
-#: without and with the pending correction.
+#: without and with the pending correction, each on a z-partitioned mesh
+#: and (``_zy``, with its own counter) on the 2-D (z, y) mesh.
 KERNELS = (
     ("zc_smooth_3d", zc.zc_smooth_3d, zc.zc_smooth_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:740", _FUSED),
@@ -83,6 +84,16 @@ KERNELS = (
      df_sharded.df_residual_sharded_3d_plain, "ndsm_tpu/ops/pallas_df.py:922", _DEFECT),
     ("df_update_residual_sharded_3d", df_sharded.df_update_residual_sharded_3d,
      df_sharded.df_update_residual_sharded_3d_plain, "ndsm_tpu/ops/pallas_df.py:922",
+     _DEFECT),
+    ("zc_smooth_sharded_3d_zy", zc_sharded.zc_smooth_sharded_3d_zy,
+     zc_sharded.zc_smooth_sharded_3d_zy_plain, "ndsm_tpu/ops/pallas_zc.py:1275", _SHARDED),
+    ("zc_smooth_residual_sharded_3d_zy", zc_sharded.zc_smooth_residual_sharded_3d_zy,
+     zc_sharded.zc_smooth_residual_sharded_3d_zy_plain, "ndsm_tpu/ops/pallas_zc.py:1275",
+     _SHARDED),
+    ("df_residual_sharded_3d_zy", df_sharded.df_residual_sharded_3d_zy,
+     df_sharded.df_residual_sharded_3d_zy_plain, "ndsm_tpu/ops/pallas_df.py:922", _DEFECT),
+    ("df_update_residual_sharded_3d_zy", df_sharded.df_update_residual_sharded_3d_zy,
+     df_sharded.df_update_residual_sharded_3d_zy_plain, "ndsm_tpu/ops/pallas_df.py:922",
      _DEFECT),
 )
 

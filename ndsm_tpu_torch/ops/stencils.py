@@ -135,17 +135,25 @@ def color_masks(shape: Tuple[int, ...], bcs: BCS, device):
     return m
 
 
-def shard_masks(shape: Tuple[int, ...], z0: int, nz_global: int, bcs: BCS, device):
-    """(red, black, interior) masks of a block of ``shape`` whose axis-0
-    plane k is plane ``z0 + k`` of a level with ``nz_global`` planes (a
-    shard's block, halo planes included, which may lie outside the level):
-    colour parity and Dirichlet faces in global indices along axis 0."""
-    key = ("shard", tuple(shape), z0, nz_global, bcs, str(device))
+def shard_masks(shape: Tuple[int, ...], offsets, extents, bcs: BCS, device):
+    """(red, black, interior) masks of a block of ``shape`` cut from a
+    level along its leading axes: ``offsets`` and ``extents`` (an int each
+    for axis 0 alone, or one entry per partitioned leading axis, e.g.
+    ``(z0, y0)`` and ``(nz_global, ny_global)``) say that index k of
+    partitioned axis a is index ``offsets[a] + k`` of a level of
+    ``extents[a]`` points along it (a shard's block, halo included, which
+    may lie outside the level).  Colour parity and Dirichlet faces are
+    taken in global indices along those axes, in local ones along the
+    rest."""
+    offsets = (int(offsets),) if np.ndim(offsets) == 0 else tuple(int(o) for o in offsets)
+    extents = (int(extents),) if np.ndim(extents) == 0 else tuple(int(e) for e in extents)
+    key = ("shard", tuple(shape), offsets, extents, bcs, str(device))
     m = _MASKS.get(key)
     if m is None:
         idx = [_axis_index(shape, ax, device) for ax in range(len(shape))]
-        idx[0] = idx[0] + z0
-        extent = (nz_global,) + tuple(shape[1:])
+        for ax, o in enumerate(offsets):
+            idx[ax] = idx[ax] + o
+        extent = extents + tuple(shape[len(extents):])
         parity = sum(idx[1:], idx[0]) % 2
         interior = torch.ones(tuple(shape), dtype=torch.bool, device=device)
         for ax, (blo, bhi) in enumerate(bcs):

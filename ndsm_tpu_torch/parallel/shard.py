@@ -8,6 +8,15 @@ of the mesh.  The port keeps that model.  A ``Mesh`` is an ordered tuple of
 (``parallel/sm_engine.py``) holds one block per mesh position, each on its
 device, and moves edge planes between them (``parallel/collectives.py``).
 
+A mesh position is a flat index into ``devices`` (row-major over
+``shape``, as JAX's ``Mesh.devices``) or its coordinates, one per mesh
+axis (``coords`` / ``index``).  The positions that share every coordinate
+but one form a *line* along that axis (``lines``): the chain over which a
+halo exchange of that axis runs.  ``submesh`` takes some of the axes, at
+index 0 of the others: what an engine partitioning fewer array axes than
+the mesh has runs on (the replicated axes' other positions hold copies,
+which the single controller does not compute).
+
 Shards share a device only when the caller says so by passing the devices,
 e.g. ``make_mesh(4, devices=["cuda:0"] * 4)`` (four shards on one card) or
 ``devices=["cpu"] * 8`` (the counterpart of JAX's virtual CPU devices).
@@ -20,7 +29,7 @@ The GSPMD path's ``ShardSpec`` is not ported (ROADMAP.md Queue A).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +54,42 @@ class Mesh:
         if int(np.prod(self.shape)) != len(self.devices) or min(self.shape, default=0) < 1:
             raise ValueError(f"{len(self.devices)} devices do not fill a mesh of shape "
                              f"{self.shape}")
+
+    def axis(self, name: str) -> int:
+        """The position of mesh axis ``name``; ValueError if there is none."""
+        if name not in self.axis_names:
+            raise ValueError(f"the mesh has no axis {name!r} (its axes: {self.axis_names})")
+        return self.axis_names.index(name)
+
+    def coords(self, i: int) -> Tuple[int, ...]:
+        """The coordinates of flat position ``i``."""
+        return tuple(int(c) for c in np.unravel_index(i, self.shape))
+
+    def index(self, coords: Sequence[int]) -> int:
+        """The flat position of ``coords``."""
+        return int(np.ravel_multi_index(tuple(coords), self.shape))
+
+    def lines(self, name: str) -> List[List[int]]:
+        """The flat positions of every line along axis ``name``, each in
+        increasing coordinate, lines in row-major order of the others."""
+        ax = self.axis(name)
+        grid = np.arange(len(self.devices)).reshape(self.shape)
+        rows = np.moveaxis(grid, ax, -1).reshape(-1, self.shape[ax])
+        return [list(map(int, row)) for row in rows]
+
+    def submesh(self, names: Sequence[str]) -> "Mesh":
+        """The mesh of axes ``names`` (in that order), taken at index 0 of
+        every other axis."""
+        axes = [self.axis(nm) for nm in names]
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"axis names repeat: {tuple(names)}")
+        grid = np.arange(len(self.devices)).reshape(self.shape)
+        sub = grid[tuple(slice(None) if a in axes else 0 for a in range(len(self.shape)))]
+        # the kept axes in mesh order; put them in the order of ``names``
+        kept = sorted(axes)
+        sub = np.transpose(sub, [kept.index(a) for a in axes])
+        return Mesh(tuple(self.devices[int(i)] for i in sub.reshape(-1)), tuple(names),
+                    tuple(self.shape[a] for a in axes))
 
 
 def _devices(n: int, devices) -> Tuple[torch.device, ...]:
@@ -80,8 +125,10 @@ def make_mesh_nd(shape: Sequence[int], axis_names: Sequence[str] = ("z", "y"),
 class DistConfig:
     """Distribution request for the pipelines: run every sub-solve on the
     sharded engine over ``mesh`` with the leading array axes partitioned
-    per ``axis_names`` (a sub-problem whose shapes cannot be partitioned
-    runs on one device).  Hashable, so it can key solver caches."""
+    per ``axis_names`` (a sub-problem of fewer dimensions takes the leading
+    names, e.g. the 2D chi faces ``("z",)`` of a ``("z", "y")`` request; a
+    sub-problem whose shapes cannot be partitioned runs on one device).
+    Hashable, so it can key solver caches."""
 
     mesh: Mesh
     axis_names: Tuple[str, ...] = ("z",)

@@ -1,36 +1,46 @@
 """Sharded multigrid solver on a single-controller shard mesh (port of
-``ndsm_tpu/parallel/sm_engine.py: ShardedPoissonBVP``, for a z-partitioned
-1-D mesh).
+``ndsm_tpu/parallel/sm_engine.py: ShardedPoissonBVP``), on a mesh that
+partitions array axis 0 (z), or axes 0 and 1 (z, y).
 
 The JAX engine runs the whole solve as one ``shard_map`` program: one
 process drives every device, each holding one block.  Here one Python
 process drives the mesh too: a sharded level is a list of blocks, block
-``i`` on ``mesh.devices[i]`` (leading array axis cut into equal blocks),
-and the collectives of ``parallel/collectives.py`` take the place of
-``ppermute``, ``psum``, ``pmax`` and ``all_gather``.
+``i`` on the ``i``-th device of the engine's mesh (the mesh of the
+partitioned axes, ``Mesh.submesh``; blocks in its row-major order, each
+leading array axis cut into equal blocks along its mesh axis), and the
+collectives of ``parallel/collectives.py`` take the place of
+``ppermute``, ``psum``, ``pmax`` and ``all_gather``.  An exchange along
+one partitioned axis runs on each line of the mesh along that axis.
 
-Level plan (as in JAX): a level is sharded while its z extent divides the
-mesh with at least ``min_rows_per_shard`` rows a shard; the first level
-that does not (the seam), and every coarser one, is replicated.  At the
-seam the fine residual is gathered once and everything below runs on the
-root device (``mesh.devices[0]``) through the single-device engine
-(mg/engine.py, its kernels on every float32 level); the prolonged
-correction is scattered back.  Between two sharded levels the transfers
-multiply by per-shard blocks of the 1-D matrices over an H-plane halo
-(``_axis_blocks``).
+Level plan (as in JAX): a level is sharded while every partitioned extent
+divides its mesh axis with at least ``min_rows_per_shard`` rows a shard;
+the first level that does not (the seam), and every coarser one, is
+replicated.  At the seam the fine residual is gathered once and everything
+below runs on the root device (the first device of the mesh) through the
+single-device engine (mg/engine.py, its kernels on every float32 level);
+the prolonged correction is scattered back.  Between two sharded levels
+the transfers multiply each partitioned axis by per-shard blocks of its
+1-D matrix over an H-plane halo (``_axis_blocks``), z then y, then the
+other axes by their full matrices.
 
 Smoothing of a sharded level, fixed by its shape and dtype:
 
-  * float32 3D, not all-Neumann, blocks of >= 4 planes: passes of the
-    per-shard kernel ``ops/zc_sharded.py`` (B10) on halo-extended blocks,
-    2 sweeps a pass (1 when a block has < 6 planes: the residual pass of
-    width w needs 2w + 2), a remainder pass, and the V-cycle descent's
-    residual fused into its last pass.  The width changes the exchanges,
-    never the bits;
-  * otherwise (float64 levels, 2D levels, 3D all-Neumann levels, blocks
-    of < 4 planes): the plain sharded half-sweep, one boundary-plane
-    exchange a half-sweep, as JAX's XLA route; ``PLAIN_ROUTES`` counts
-    each run on a CUDA tensor.
+  * float32 3D, not all-Neumann, blocks of >= 4 points along every
+    partitioned axis: passes of the per-shard kernel
+    ``ops/zc_sharded.py`` on halo-extended blocks (B10 on a z mesh, its
+    ``_zy`` form B10y on a (z, y) mesh, where the blocks are extended in z
+    and then in y, so the corners hold the diagonal neighbours' values), 2
+    sweeps a pass (1 when a block has < 6 points along a partitioned axis:
+    the residual pass of width w needs 2w + 2), a remainder pass, and the
+    V-cycle descent's residual fused into its last pass.  The width
+    changes the exchanges, never the bits;
+  * otherwise (float64 levels, 2D levels, 3D all-Neumann levels, smaller
+    blocks): the plain sharded half-sweep, one boundary-plane exchange a
+    partitioned axis a half-sweep, as JAX's XLA route; ``PLAIN_ROUTES``
+    counts each run on a CUDA tensor.  On levels that are not all-Neumann
+    it gives the bits of JAX's colour-compact sharded smoother too; on
+    all-Neumann levels JAX's compact route sums the mean over the two
+    colour halves, in another order (ulp level).
 
 ``Options.smoother`` keeps JAX's sharded meaning: the sharded kernel
 whatever it says; replicated levels use the dense kernels.
@@ -38,16 +48,16 @@ whatever it says; replicated levels use the dense kernels.
 Precision modes (as PoissonBVP): fp64, fp32, and mixed -- float32
 V-cycles inside a float64 defect correction.  For a 3D problem that is
 not all-Neumann with ``mixed_defect`` "auto"/"df32" the defect runs per
-shard in ``ops/df_sharded.py`` (B11) on the iterate carried halo-extended
-across defect groups, each group exchanging only its pending correction;
-otherwise the scaled float64 defect of ``_mixed_group`` with the plain
-sharded residual.
+shard in ``ops/df_sharded.py`` (B11, or B11y on a (z, y) mesh) on the
+iterate carried halo-extended across defect groups, each group exchanging
+only its pending correction; otherwise the scaled float64 defect of
+``_mixed_group`` with the plain sharded residual.
 
 The loops run on the host and read each V-cycle's metric (one device
-synchronisation), as PoissonBVP does.  Not ported (ROADMAP.md Queue A):
-the 2-D (z, y) mesh, ``solve_checkpointed``, the standalone
-``make_sharded_sweep`` / ``make_sharded_residual`` builders, and the
-colour-compact sharded smoother (the same bits as the route above).
+synchronisation), as PoissonBVP does.  ``make_sharded_sweep`` and
+``make_sharded_residual`` give the plain sharded sweep and residual of one
+level on their own, over the same primitives (``ShardStencil``).  Not
+ported (ROADMAP.md Queue A): ``solve_checkpointed``.
 """
 
 from __future__ import annotations
@@ -72,8 +82,8 @@ from ..utils.device import resolve_device
 from . import collectives as C
 from .shard import Mesh
 
-__all__ = ["ShardedPoissonBVP", "seam_of", "PLAIN_ROUTES", "plain_route_counts",
-           "reset_plain_route_counts"]
+__all__ = ["ShardedPoissonBVP", "ShardStencil", "make_sharded_sweep", "make_sharded_residual",
+           "seam_of", "PLAIN_ROUTES", "plain_route_counts", "reset_plain_route_counts"]
 
 _EPS32 = 32.0 * float(np.finfo(np.float32).eps)
 
@@ -117,14 +127,17 @@ def _axis_blocks(M: np.ndarray, ndev: int) -> Tuple[np.ndarray, int]:
     return blocks, H
 
 
-def seam_of(hierarchy: GridHierarchy, ndev: int, min_rows_per_shard: int) -> int:
-    """The level plan: the number of leading levels that are sharded (z
-    extent divisible by ``ndev`` with >= ``min_rows_per_shard`` planes a
-    shard); the coarsest level is always replicated.  0: not
-    partitionable."""
+def seam_of(hierarchy: GridHierarchy, ndev, min_rows_per_shard: int) -> int:
+    """The level plan: the number of leading levels that are sharded (each
+    partitioned extent divisible by its shard count, ``ndev``: one count,
+    for axis 0, or one per partitioned leading axis, with >=
+    ``min_rows_per_shard`` rows a shard); the coarsest level is always
+    replicated.  0: not partitionable."""
+    counts = (int(ndev),) if np.ndim(ndev) == 0 else tuple(int(n) for n in ndev)
     seam = 0
     for shape in hierarchy.shapes[: hierarchy.ngrids - 1]:
-        if shape[0] % ndev or shape[0] < ndev * min_rows_per_shard:
+        if any(shape[ax] % n or shape[ax] < n * min_rows_per_shard
+               for ax, n in enumerate(counts)):
             break
         seam += 1
     return seam
@@ -136,15 +149,185 @@ def _apply_axis(x: torch.Tensor, m: torch.Tensor, ax: int) -> torch.Tensor:
     return y.reshape((m.shape[0],) + tuple(xt.shape[1:])).movedim(0, ax)
 
 
-class ShardedPoissonBVP:
+class ShardStencil:
+    """Blocks of the levels of a grid cut over a shard mesh, and the plain
+    sharded red-black sweep and residual on them: what the engine and
+    ``make_sharded_sweep`` / ``make_sharded_residual`` share (JAX
+    ``ShardStencilKernels``), so there is one halo implementation.
+
+    ``shapes`` and ``dq``: each level's global shape and spacings; ``mesh``
+    and ``axis_names`` as for ``ShardedPoissonBVP``.  Block i of a level
+    lies on ``devices[i]``, at ``_coords[i]`` of the mesh of the partitioned
+    axes; ``_lines[ax]`` are that mesh's lines along partitioned axis ax.
+    """
+
+    def __init__(self, shapes, dq, bcs, mesh: Mesh, axis_names: Sequence[str]):
+        ndim = len(shapes[0])
+        names = tuple(axis_names)
+        if not names or len(names) >= ndim:
+            raise ValueError(f"axis_names {names}: partition 1 to {ndim - 1} leading "
+                             "array axes (the last array axis cannot be partitioned)")
+        sub = mesh.submesh(names)  # (ValueError for a name the mesh lacks)
+        self.bcs = stencils.validate_bcs(bcs, ndim)
+        self.ndim = ndim
+        self._all_neumann = stencils.is_all_neumann(self.bcs)
+        self._shapes = [tuple(sh) for sh in shapes]
+        self._dq = [tuple(float(v) for v in d) for d in dq]
+        self.mesh = mesh
+        self.names = names
+        #: shards along each partitioned axis, by mesh axis name
+        self.ndev: Dict[str, int] = dict(zip(names, sub.shape))
+        self.grid: Tuple[int, ...] = tuple(sub.shape)
+        self._coords = [sub.coords(i) for i in range(len(sub.devices))]
+        self._lines = [sub.lines(nm) for nm in names]
+        # (an unindexed "cuda" is the current device, so that it equals the
+        # device of the tensors made on it)
+        self.devices = tuple(
+            torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d
+            for d in (resolve_device(d) for d in sub.devices)
+        )
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"a mesh on devices of several types: {self.devices}")
+        self.device = self.devices[0]
+
+    # ------------------------------------------------------------------
+    # Geometry
+    # ------------------------------------------------------------------
+
+    def _local(self, level: int) -> Tuple[int, ...]:
+        """The block shape of a sharded level."""
+        shape = list(self._shapes[level])
+        for ax, n in enumerate(self.grid):
+            shape[ax] //= n
+        return tuple(shape)
+
+    def _offsets(self, level: int, i: int) -> Tuple[int, ...]:
+        """Global index of block i's first point along each partitioned axis."""
+        local = self._local(level)
+        return tuple(c * local[ax] for ax, c in enumerate(self._coords[i]))
+
+    def _extents(self, level: int) -> Tuple[int, ...]:
+        return tuple(self._shapes[level][: len(self.grid)])
+
+    def _pax(self, x: torch.Tensor) -> int:
+        """The first partitioned axis of ``x`` (after its lane axes)."""
+        return x.ndim - self.ndim
+
+    def _sdims(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(range(x.ndim - self.ndim, x.ndim))
+
+    def _shard_masks(self, level: int, i: int, device):
+        """(red, black, interior) of shard i's block at a sharded level."""
+        return stencils.shard_masks(self._local(level), self._offsets(level, i),
+                                    self._extents(level), self.bcs, device)
+
+    def _extend(self, xs, H: int):
+        """The blocks extended by H planes a side along every partitioned
+        axis, z first, then y on the z-extended blocks (JAX
+        ``_extend_block``: the corners hold the diagonal neighbours')."""
+        pax = self._pax(xs[0])
+        for ax, line in enumerate(self._lines):
+            xs = C.extend_block(xs, self.devices, pax + ax, H, line)
+        return xs
+
+    def _unextend(self, xs, H: int):
+        pax = self._pax(xs[0])
+        for ax in range(len(self.grid)):
+            xs = C.unextend_block(xs, pax + ax, H)
+        return xs
+
+    # ------------------------------------------------------------------
+    # Sharded level primitives (lists of blocks)
+    # ------------------------------------------------------------------
+
+    def _count_plain(self, x: torch.Tensor, kind: str) -> None:
+        if x.device.type == "cuda":
+            PLAIN_ROUTES[f"{kind}_{self.ndim}d"] += 1
+
+    def _lead_pair(self, us, ax: int):
+        """(lower, upper) neighbour blocks along partitioned axis ``ax``:
+        one plane from each neighbour shard of its line, index reflection
+        at the global ends."""
+        a = self._pax(us[0]) + ax
+        fp, fn = C.exchange_planes(us, self.devices, a, 1, self._lines[ax])
+        los, his = [], []
+        for p, u, q in zip(fp, us, fn):
+            n = u.shape[a]
+            first = p if p is not None else u.narrow(a, 1, 1)
+            last = q if q is not None else u.narrow(a, n - 2, 1)
+            los.append(torch.cat([first, u.narrow(a, 0, n - 1)], dim=a))
+            his.append(torch.cat([u.narrow(a, 1, n - 1), last], dim=a))
+        return los, his
+
+    def _stencil_pairs(self, us):
+        """Per block: (i, u, pairs) with the (lower, upper) neighbours of u
+        along every spatial axis, exchanged along the partitioned axes and
+        reflected along the rest."""
+        pax, k = self._pax(us[0]), len(self.grid)
+        lead = [self._lead_pair(us, ax) for ax in range(k)]
+        for i, u in enumerate(us):
+            yield i, u, [(lead[ax][0][i], lead[ax][1][i]) if ax < k
+                         else stencils._neighbors(u, pax + ax) for ax in range(self.ndim)]
+
+    def _sh_half(self, us, rhss, level: int, which: int, w, w0):
+        self._count_plain(us[0], "half_sweep")
+        out = []
+        for i, u, pairs in self._stencil_pairs(us):
+            total = None
+            for ax, (lo, hi) in enumerate(pairs):
+                term = (lo + hi) * w[ax]
+                total = term if total is None else total + term
+            unew = (total - rhss[i]) * w0
+            out.append(torch.where(self._shard_masks(level, i, u.device)[which], unew, u))
+        return out
+
+    def _sh_sweep(self, us, rhss, level: int):
+        """One red-black sweep of the plain sharded route (JAX
+        ``_sharded_sweep``); all-Neumann levels subtract the global mean."""
+        w, w0 = stencils.stencil_weights(self._dq[level], us[0].dtype)
+        us = self._sh_half(us, rhss, level, 0, w, w0)
+        us = self._sh_half(us, rhss, level, 1, w, w0)
+        if self._all_neumann:
+            sd = self._sdims(us[0])
+            total = C.psum([torch.sum(u, dim=sd) for u in us], self.devices)
+            mean = total / float(np.prod(self._shapes[level]))
+            us = [u - m for u, m in zip(us, self._bc(mean))]
+        return us
+
+    def _sh_residual(self, us, rhss, level: int):
+        """``rhs - L[u]`` of the plain sharded route (JAX
+        ``_sharded_residual``), zero on Dirichlet points."""
+        self._count_plain(us[0], "residual")
+        w, _ = stencils.stencil_weights(self._dq[level], us[0].dtype)
+        out = []
+        for i, u, pairs in self._stencil_pairs(us):
+            lap = None
+            for ax, (lo, hi) in enumerate(pairs):
+                term = (lo - 2.0 * u + hi) * w[ax]
+                lap = term if lap is None else lap + term
+            r = rhss[i] - lap
+            out.append(r.masked_fill(~self._shard_masks(level, i, u.device)[2], 0.0))
+        return out
+
+    def _bc(self, x: torch.Tensor):
+        """A per-lane root value on every shard, broadcastable over a level."""
+        return [v.reshape(tuple(v.shape) + (1,) * self.ndim)
+                for v in C.broadcast(x, self.devices)]
+
+
+class ShardedPoissonBVP(ShardStencil):
     """Poisson solve with the levels above the seam block-partitioned along
-    axis 0 over ``mesh`` (see module docstring).
+    the leading array axes over ``mesh`` (see module docstring).
 
     Parameters:
       hierarchy, bcs, options: as for PoissonBVP.
-      mesh: a 1-D ``Mesh`` whose axis is ``axis_names[0]``.
-      axis_names: the mesh axis of array axis 0, ``("z",)``; a second name
-        (the 2-D (z, y) mesh) is not ported.
+      mesh: a ``Mesh`` holding every name of ``axis_names``; with more axes
+        the engine runs on its sub-mesh of those names, at index 0 of the
+        others (``Mesh.submesh``).
+      axis_names: the mesh axis of each partitioned array axis, from axis
+        0: ``("z",)`` or ``("z", "y")``.  The last array axis cannot be
+        partitioned.
       min_rows_per_shard: replicate levels with fewer rows a shard (>= 2).
     """
 
@@ -158,49 +341,25 @@ class ShardedPoissonBVP:
         axis_names: Sequence[str] = ("z",),
         min_rows_per_shard: int = 4,
     ):
-        names = tuple(axis_names)
-        if len(names) != 1 or mesh.axis_names != names:
-            raise NotImplementedError(
-                f"ShardedPoissonBVP takes a 1-D mesh partitioning array axis 0 (mesh axes "
-                f"{mesh.axis_names}, axis_names {names}); the 2-D (z, y) mesh is not ported "
-                "to ndsm_tpu_torch yet (ROADMAP.md Queue A)"
-            )
-        if hierarchy.ndim < 2:
-            raise ValueError("the last array axis cannot be partitioned")
         if int(min_rows_per_shard) < 2:
             raise ValueError("min_rows_per_shard must be >= 2 (a global end reflects "
                              "its shard's second plane)")
+        ShardStencil.__init__(self, hierarchy.shapes, hierarchy.dq, bcs, mesh, axis_names)
         self.h = hierarchy
-        self.bcs = stencils.validate_bcs(bcs, hierarchy.ndim)
         self.options = options
-        self.mesh = mesh
-        self.names = names
-        # (an unindexed "cuda" is the current device, so that it equals the
-        # device of the tensors made on it)
-        self.devices = tuple(
-            torch.device("cuda", torch.cuda.current_device())
-            if d.type == "cuda" and d.index is None else d
-            for d in (resolve_device(d) for d in mesh.devices)
-        )
-        if len({d.type for d in self.devices}) != 1:
-            raise ValueError(f"a mesh on devices of several types: {self.devices}")
-        self.device = self.devices[0]
-        self.ndev = len(self.devices)
         self.min_rows_per_shard = int(min_rows_per_shard)
         self.mode = options.resolve_precision(self.device)
         if self.mode not in ("fp64", "mixed", "fp32"):
             raise ValueError(f"unknown precision mode {self.mode!r}")
         self.outer_dtype = torch.float32 if self.mode == "fp32" else torch.float64
         self.inner_dtype = torch.float64 if self.mode == "fp64" else torch.float32
-        self.ndim = hierarchy.ndim
-        self._all_neumann = stencils.is_all_neumann(self.bcs)
         self._inner_max = max(1, int(options.mixed_inner_max)) if self.mode == "mixed" else 1
 
-        self.seam = seam_of(hierarchy, self.ndev, self.min_rows_per_shard)
+        self.seam = seam_of(hierarchy, self.grid, self.min_rows_per_shard)
         if self.seam == 0:
             raise ValueError(
-                f"finest level {hierarchy.shapes[0]} cannot be partitioned over {self.ndev} "
-                f"shards (its z extent must divide the mesh with >= "
+                f"finest level {hierarchy.shapes[0]} cannot be partitioned over mesh axes "
+                f"{self.ndev} (each partitioned extent must divide its mesh axis with >= "
                 f"{self.min_rows_per_shard} rows a shard)"
             )
 
@@ -213,8 +372,10 @@ class ShardedPoissonBVP:
         )
         self.coarse_direct = self._rep.coarse_direct
 
-        # Per-shard transfer blocks of sharded -> sharded level pairs, and
-        # the full matrices of the other axes on every device.
+        # Per-shard transfer blocks of sharded -> sharded level pairs, per
+        # partitioned axis (each shard's by its coordinate on that axis),
+        # and the full matrices of the other axes on every device.
+        k = len(self.names)
         self._blocks: List[Dict[str, tuple]] = []
         for l in range(self.seam - 1):
             fine, coarse = hierarchy.meshes[l], hierarchy.meshes[l + 1]
@@ -223,12 +384,15 @@ class ShardedPoissonBVP:
                 ("R", [restrict_matrix_1d(c, f) for f, c in zip(fine, coarse)]),
                 ("P", [interp_matrix_1d(f, c) for f, c in zip(fine, coarse)]),
             ):
-                blocks, H = _axis_blocks(mats[0], self.ndev)
-                rest = {d: [self._t(m, d) for m in mats[1:]] for d in set(self.devices)}
-                pair[kind] = ([self._t(b, d) for b, d in zip(blocks, self.devices)], H, rest)
+                per_axis = []
+                for ax in range(k):
+                    blocks, H = _axis_blocks(mats[ax], self.grid[ax])
+                    per_axis.append(([self._t(blocks[c[ax]], d)
+                                      for c, d in zip(self._coords, self.devices)], H))
+                rest = {d: [self._t(m, d) for m in mats[k:]] for d in set(self.devices)}
+                pair[kind] = (per_axis, rest)
             self._blocks.append(pair)
 
-        self._dq = [tuple(float(v) for v in d) for d in hierarchy.dq]
         #: True when the mixed 3D defect runs per shard in ops/df_sharded.py.
         self.df_defect = (
             self.mode == "mixed"
@@ -240,122 +404,39 @@ class ShardedPoissonBVP:
     def _t(self, m: np.ndarray, device) -> torch.Tensor:
         return torch.as_tensor(m, dtype=self.inner_dtype, device=device)
 
-    # ------------------------------------------------------------------
-    # Geometry
-    # ------------------------------------------------------------------
-
-    def _local_nz(self, level: int) -> int:
-        return self.h.shapes[level][0] // self.ndev
-
-    def _z0(self, level: int, i: int) -> int:
-        return i * self._local_nz(level)
-
-    def _pax(self, x: torch.Tensor) -> int:
-        """The partitioned axis of ``x`` (after its lane axes)."""
-        return x.ndim - self.ndim
-
-    def _sdims(self, x: torch.Tensor) -> Tuple[int, ...]:
-        return tuple(range(x.ndim - self.ndim, x.ndim))
-
-    def _shard_masks(self, level: int, i: int, device):
-        """(red, black, interior) of shard i's block at a sharded level."""
-        shape = (self._local_nz(level),) + tuple(self.h.shapes[level][1:])
-        return stencils.shard_masks(shape, self._z0(level, i), self.h.shapes[level][0],
-                                    self.bcs, device)
-
     def _zeros(self, level: int, lanes, dtype):
-        shape = tuple(lanes) + tuple(self.h.shapes[level])
         if level < self.seam:
-            shape = tuple(lanes) + (self._local_nz(level),) + shape[len(lanes) + 1:]
+            shape = tuple(lanes) + self._local(level)
             return [torch.zeros(shape, dtype=dtype, device=d) for d in self.devices]
-        return torch.zeros(shape, dtype=dtype, device=self.device)
-
-    # ------------------------------------------------------------------
-    # Sharded level primitives (lists of blocks)
-    # ------------------------------------------------------------------
-
-    def _count_plain(self, x: torch.Tensor, kind: str) -> None:
-        if x.device.type == "cuda":
-            PLAIN_ROUTES[f"{kind}_{self.ndim}d"] += 1
-
-    def _lead_pair(self, us):
-        """(lower, upper) neighbour blocks along the partitioned axis: one
-        plane from each neighbour shard, index reflection at the global
-        ends."""
-        pax = self._pax(us[0])
-        fp, fn = C.exchange_planes(us, self.devices, pax, 1)
-        los, his = [], []
-        for p, u, q in zip(fp, us, fn):
-            n = u.shape[pax]
-            first = p if p is not None else u.narrow(pax, 1, 1)
-            last = q if q is not None else u.narrow(pax, n - 2, 1)
-            los.append(torch.cat([first, u.narrow(pax, 0, n - 1)], dim=pax))
-            his.append(torch.cat([u.narrow(pax, 1, n - 1), last], dim=pax))
-        return los, his
-
-    def _sh_half(self, us, rhss, level: int, which: int, w, w0):
-        self._count_plain(us[0], "half_sweep")
-        pax = self._pax(us[0])
-        los, his = self._lead_pair(us)
-        out = []
-        for i, (u, rhs, lo0, hi0) in enumerate(zip(us, rhss, los, his)):
-            total = (lo0 + hi0) * w[0]
-            for ax in range(1, self.ndim):
-                lo, hi = stencils._neighbors(u, pax + ax)
-                total = total + (lo + hi) * w[ax]
-            unew = (total - rhs) * w0
-            out.append(torch.where(self._shard_masks(level, i, u.device)[which], unew, u))
-        return out
-
-    def _sh_sweep(self, us, rhss, level: int):
-        """One red-black sweep of the plain sharded route (JAX
-        ``_sharded_sweep``); all-Neumann levels subtract the global mean."""
-        w, w0 = stencils.stencil_weights(self._dq[level], us[0].dtype)
-        us = self._sh_half(us, rhss, level, 0, w, w0)
-        us = self._sh_half(us, rhss, level, 1, w, w0)
-        if self._all_neumann:
-            sd = self._sdims(us[0])
-            total = C.psum([torch.sum(u, dim=sd) for u in us], self.devices)
-            mean = total / float(np.prod(self.h.shapes[level]))
-            us = [u - m for u, m in zip(us, self._bc(mean))]
-        return us
-
-    def _sh_residual(self, us, rhss, level: int):
-        """``rhs - L[u]`` of the plain sharded route (JAX
-        ``_sharded_residual``), zero on Dirichlet points."""
-        self._count_plain(us[0], "residual")
-        w, _ = stencils.stencil_weights(self._dq[level], us[0].dtype)
-        pax = self._pax(us[0])
-        los, his = self._lead_pair(us)
-        out = []
-        for i, (u, rhs, lo0, hi0) in enumerate(zip(us, rhss, los, his)):
-            lap = (lo0 - 2.0 * u + hi0) * w[0]
-            for ax in range(1, self.ndim):
-                lo, hi = stencils._neighbors(u, pax + ax)
-                lap = lap + (lo - 2.0 * u + hi) * w[ax]
-            r = rhs - lap
-            out.append(r.masked_fill(~self._shard_masks(level, i, u.device)[2], 0.0))
-        return out
+        return torch.zeros(tuple(lanes) + tuple(self.h.shapes[level]), dtype=dtype,
+                           device=self.device)
 
     def _pass_width(self, level: int, x: torch.Tensor) -> int:
-        """Sweeps a pass of the per-shard kernel, or 0 for the plain route."""
+        """Sweeps a pass of the per-shard kernel, or 0 for the plain route:
+        from the smallest partitioned extent of a block."""
         if x.dtype != torch.float32 or self.ndim != 3 or self._all_neumann:
             return 0
-        nz = self._local_nz(level)
-        return 2 if nz >= 6 else 1 if nz >= 4 else 0
+        n = min(self._local(level)[: len(self.grid)])
+        return 2 if n >= 6 else 1 if n >= 4 else 0
 
     def _kernel_pass(self, us, rhss, level: int, ns: int, rhs_ext: dict, residual=False):
         """One pass of ``ns`` sweeps of the per-shard kernel (+ the
-        residual), over a halo of 2*ns (+1) planes; ``rhs_ext`` caches the
-        extended rhs of the calling smoother by depth."""
+        residual), over a halo of 2*ns (+1) points along every partitioned
+        axis; ``rhs_ext`` caches the extended rhs of the calling smoother
+        by depth."""
         H = 2 * ns + (1 if residual else 0)
         if H not in rhs_ext:
-            rhs_ext[H] = C.extend_block(rhss, self.devices, 0, H)
-        ue = C.extend_block(us, self.devices, 0, H)
-        fn = zc_sharded.zc_smooth_residual_sharded_3d if residual else \
-            zc_sharded.zc_smooth_sharded_3d
-        nz_g = self.h.shapes[level][0]
-        return [fn(u, r, self._dq[level], self.bcs, ns, self._z0(level, i), nz_g, H)
+            rhs_ext[H] = self._extend(rhss, H)
+        ue = self._extend(us, H)
+        dq, ext = self._dq[level], self._extents(level)
+        if len(self.grid) == 1:
+            fn = zc_sharded.zc_smooth_residual_sharded_3d if residual else \
+                zc_sharded.zc_smooth_sharded_3d
+            return [fn(u, r, dq, self.bcs, ns, self._offsets(level, i)[0], ext[0], H)
+                    for i, (u, r) in enumerate(zip(ue, rhs_ext[H]))]
+        fn = zc_sharded.zc_smooth_residual_sharded_3d_zy if residual else \
+            zc_sharded.zc_smooth_sharded_3d_zy
+        return [fn(u, r, dq, self.bcs, ns, self._offsets(level, i), ext, (H, H))
                 for i, (u, r) in enumerate(zip(ue, rhs_ext[H]))]
 
     def _sh_smooth(self, us, rhss, level: int, n: int):
@@ -386,14 +467,16 @@ class ShardedPoissonBVP:
         us = self._sh_smooth(us, rhss, level, n)
         return us, self._sh_residual(us, rhss, level)
 
-    def _apply_blocks(self, xs, blocks, H, rest):
-        """Contract the partitioned axis with each shard's block over an
-        H-plane halo, then the other axes with their full matrices."""
+    def _apply_blocks(self, xs, per_axis, rest):
+        """Contract each partitioned axis with each shard's block over an
+        H-plane halo (z, then y), then the other axes with their full
+        matrices."""
         full_f32_matmul()
         pax = self._pax(xs[0])
-        ext = C.exchange_halo(xs, self.devices, pax, H)
-        return [apply_axis_matrices(_apply_axis(x, b, pax), rest[x.device])
-                for x, b in zip(ext, blocks)]
+        for ax, ((blocks, H), line) in enumerate(zip(per_axis, self._lines)):
+            ext = C.exchange_halo(xs, self.devices, pax + ax, H, line)
+            xs = [_apply_axis(x, b, pax + ax) for x, b in zip(ext, blocks)]
+        return [apply_axis_matrices(x, rest[x.device]) for x in xs]
 
     # ------------------------------------------------------------------
     # Level dispatch: sharded levels above the seam, replicated below
@@ -420,7 +503,7 @@ class ShardedPoissonBVP:
         if level + 1 < self.seam:
             return self._apply_blocks(r, *self._blocks[level]["R"])
         if level < self.seam:
-            r = C.all_gather(r, self.devices, self._pax(r[0]))
+            r = C.all_gather(r, self.devices, self._pax(r[0]), self.grid)
         return self._rep.t_restrict(r, level)
 
     def _prolong(self, uc, level: int):
@@ -429,7 +512,7 @@ class ShardedPoissonBVP:
             return self._apply_blocks(uc, *self._blocks[level]["P"])
         full = self._rep.t_prolong(uc, level)
         if level < self.seam:
-            return C.scatter(full, self.devices, self._pax(full))
+            return C.scatter(full, self.devices, self._pax(full), self.grid)
         return full
 
     def _metric(self, a, b):
@@ -473,11 +556,6 @@ class ShardedPoissonBVP:
     def _vcycle_du(self, u, rhs, ex_tol, nmax_exact, u_ref):
         u_new, noconv = self._vcycle(u, rhs, ex_tol, nmax_exact)
         return u_new, noconv, self._metric(u_new, u_ref)
-
-    def _bc(self, x: torch.Tensor):
-        """A per-lane root value on every shard, broadcastable over a level."""
-        return [v.reshape(tuple(v.shape) + (1,) * self.ndim)
-                for v in C.broadcast(x, self.devices)]
 
     def _mixed_group(self, u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax):
         """One float64 defect, scaled to unit max, supporting up to
@@ -550,6 +628,21 @@ class ShardedPoissonBVP:
         ierr = torch.where(du < vc_tol, IERR_SUCCESS, IERR_COVFAIL)
         return u, du, it, ierr, flag
 
+    def _defect(self, i: int, u_ext, rhs, e_ext=None):
+        """The per-shard defect of block i at level 0 (B11 on a z mesh, B11y
+        on a (z, y) mesh), applying ``e_ext`` first when given."""
+        dq, off, ext = self._dq[0], self._offsets(0, i), self._extents(0)
+        if len(self.grid) == 1:
+            off, ext = off[0], ext[0]
+            if e_ext is None:
+                return df_sharded.df_residual_sharded_3d(u_ext, rhs, dq, self.bcs, off, ext)
+            return df_sharded.df_update_residual_sharded_3d(u_ext, rhs, e_ext, dq, self.bcs,
+                                                            off, ext)
+        if e_ext is None:
+            return df_sharded.df_residual_sharded_3d_zy(u_ext, rhs, dq, self.bcs, off, ext)
+        return df_sharded.df_update_residual_sharded_3d_zy(u_ext, rhs, e_ext, dq, self.bcs,
+                                                           off, ext)
+
     def _solve_df(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact):
         """3D mixed solve with the per-shard defect (JAX
         ``_local_solve_df_impl``, with PoissonBVP._solve_df's flow): the
@@ -561,21 +654,16 @@ class ShardedPoissonBVP:
         big = float(np.finfo(np.float64).max)
         if nmax < 1:  # reference DO-loop contract: no cycles, u0 back
             return u, big, 0, IERR_COVFAIL, False
-        dq0, nz_g = self._dq[0], self.h.shapes[0][0]
-        rhs = [None] * self.ndev if rhs is None else rhs
-        u_ext = C.extend_block(u, self.devices, 0, 1)
+        rhs = [None] * len(self.devices) if rhs is None else rhs
+        u_ext = self._extend(u, 1)
         e = None
         it, flag = 0, False
         while True:
             if e is None:
-                out = [df_sharded.df_residual_sharded_3d(
-                    ue, r, dq0, self.bcs, self._z0(0, i), nz_g)
-                    for i, (ue, r) in enumerate(zip(u_ext, rhs))]
+                out = [self._defect(i, ue, r) for i, (ue, r) in enumerate(zip(u_ext, rhs))]
             else:
-                e_ext = C.extend_block(e, self.devices, 0, 1)
-                out = [df_sharded.df_update_residual_sharded_3d(
-                    ue, r, ee, dq0, self.bcs, self._z0(0, i), nz_g)
-                    for i, (ue, r, ee) in enumerate(zip(u_ext, rhs, e_ext))]
+                out = [self._defect(i, ue, r, ee)
+                       for i, (ue, r, ee) in enumerate(zip(u_ext, rhs, self._extend(e, 1)))]
                 u_ext = [o[2] for o in out]
             r32 = [o[0] for o in out]
             mx = C.pmax([o[1] for o in out], self.devices)
@@ -590,7 +678,7 @@ class ShardedPoissonBVP:
             it += k
             if not (it < nmax and du_e >= vc_tol):
                 break
-        u = [a + b.to(torch.float64) for a, b in zip(C.unextend_block(u_ext, 0, 1), e)]
+        u = [a + b.to(torch.float64) for a, b in zip(self._unextend(u_ext, 1), e)]
         ierr = IERR_SUCCESS if du_e < vc_tol else IERR_COVFAIL
         return u, du_e, it, ierr, flag
 
@@ -602,7 +690,7 @@ class ShardedPoissonBVP:
         t = torch.as_tensor(x, dtype=self.outer_dtype, device=self.device)
         if tuple(t.shape[lanes:]) != tuple(self.h.fine_shape):
             raise ValueError(f"{what} shape {tuple(t.shape)} != fine grid {self.h.fine_shape}")
-        return C.shard(t, self.devices, lanes)
+        return C.shard(t, self.devices, lanes, self.grid)
 
     def _limits(self):
         o = self.options
@@ -630,7 +718,7 @@ class ShardedPoissonBVP:
         else:
             r = [torch.zeros_like(b) for b in u] if zero_rhs else self._split(rhs, "rhs")
             u, du, it, ierr, flag = self._loop(u, r, vc_tol, ex_tol, nmax, nmax_exact)
-        u = C.unshard(u, self.devices, 0)
+        u = C.unshard(u, self.devices, 0, self.grid)
         if output_dtype is not None:
             u = u.to(getattr(torch, output_dtype) if isinstance(output_dtype, str)
                      else output_dtype)
@@ -660,7 +748,7 @@ class ShardedPoissonBVP:
                           "rhs", lanes=1)
         t0 = time.perf_counter()
         u, du, it, ierr, flag = self._loop(u, rhs, vc_tol, ex_tol, nmax, nmax_exact)
-        u = C.unshard(u, self.devices, 1)
+        u = C.unshard(u, self.devices, 1, self.grid)
         self._sync()
         wall = time.perf_counter() - t0
         infos = [
@@ -671,3 +759,46 @@ class ShardedPoissonBVP:
         ]
         PoissonBVP._post_warnings(infos)
         return list(u.unbind(0)), infos
+
+
+# ----------------------------------------------------------------------
+# One level on its own (JAX make_sharded_sweep / make_sharded_residual):
+# the plain sharded sweep and residual of ShardStencil, axis 0 partitioned
+# over one mesh axis.
+# ----------------------------------------------------------------------
+
+
+def _single_level(global_shape, bcs, dq, mesh: Mesh, axis_name: str, dtype):
+    shape = tuple(int(n) for n in global_shape)
+    ops = ShardStencil([shape], [dq], bcs, mesh, (axis_name,))
+    if shape[0] % ops.grid[0]:
+        raise ValueError(f"axis 0 ({shape[0]}) must divide over {ops.grid[0]} devices")
+
+    def place(x) -> List[torch.Tensor]:
+        """An array of ``global_shape`` as the mesh's blocks (``dtype``)."""
+        t = torch.as_tensor(x, dtype=dtype, device=ops.device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        return C.shard(t, ops.devices, 0)
+
+    return ops, place
+
+
+def make_sharded_sweep(global_shape, bcs, dq, mesh: Mesh, axis_name: str = "z",
+                       dtype=torch.float32):
+    """A red-black sweep over arrays block-partitioned along axis 0 of
+    ``mesh``, with the semantics of ``ops.stencils.rb_sweep`` (the global
+    mean subtracted on an all-Neumann box).  Returns ``(f, place)``:
+    ``f(u_blocks, rhs_blocks) -> u_blocks`` and ``place(x)``, the blocks of
+    an array of ``global_shape`` on the mesh; ``collectives.unshard``
+    gathers them."""
+    ops, place = _single_level(global_shape, bcs, dq, mesh, axis_name, dtype)
+    return (lambda u, rhs: ops._sh_sweep(list(u), list(rhs), 0)), place
+
+
+def make_sharded_residual(global_shape, bcs, dq, mesh: Mesh, axis_name: str = "z",
+                          dtype=torch.float32):
+    """The residual ``rhs - L[u]`` over arrays block-partitioned along axis 0
+    of ``mesh`` (one boundary-plane exchange), as ``make_sharded_sweep``."""
+    ops, place = _single_level(global_shape, bcs, dq, mesh, axis_name, dtype)
+    return (lambda u, rhs: ops._sh_residual(list(u), list(rhs), 0)), place

@@ -29,7 +29,11 @@ shapes can be partitioned runs on the sharded engine
 each group of chi faces as one lane-masked ``solve_batch``, the three
 components one after the other (no component batching under ``dist``),
 each a zero-rhs ``solve``; a sub-problem that cannot be partitioned runs
-on ``device``.  The mesh's devices must be of ``device``'s type.
+on ``device``.  A sub-problem partitions the leading ``ndim - 1`` names of
+``dist.axis_names``: on a (z, y) mesh the 3D components partition z and
+y, and the 2D chi faces z alone, on the mesh's z line at y index 0 (the
+other lines would hold copies, which one controller need not compute).
+The mesh's devices must be of ``device``'s type.
 
 Everything after the face extraction stays on the device; the API copies
 A and B to the host at the end.  Not ported yet (ROADMAP.md Queue A):
@@ -203,10 +207,11 @@ def _dist_bvp(hierarchy, bcs, options: Options, dist):
     bvp = _DIST_BVP_CACHE.get(key)
     if bvp is None:
         bvp = False  # (cached too: not partitionable)
-        if seam_of(hierarchy, len(dist.mesh.devices), dist.min_rows_per_shard):
+        names = tuple(dist.axis_names[: hierarchy.ndim - 1])
+        counts = dist.mesh.submesh(names).shape  # the shards of the axes it partitions
+        if seam_of(hierarchy, counts, dist.min_rows_per_shard):
             bvp = ShardedPoissonBVP(
-                hierarchy, bcs, options, mesh=dist.mesh,
-                axis_names=tuple(dist.axis_names[: hierarchy.ndim - 1]),
+                hierarchy, bcs, options, mesh=dist.mesh, axis_names=names,
                 min_rows_per_shard=dist.min_rows_per_shard,
             )
         _DIST_BVP_CACHE.put(key, bvp)

@@ -62,11 +62,10 @@ _SIGNATURES = {
                               _I, _F, _F, _F, _F, _P),
     "ndsm_compact_split_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _IP, _P),
     "ndsm_compact_merge_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "ndsm_shard_half_oop_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "ndsm_shard_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "ndsm_shard_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    "ndsm_defect_sharded_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D,
-                                _P),
+    "ndsm_shard_half_oop_f32": (_P, _P, _P) + (_I,) * 9 + (_F, _F, _F, _F, _P),
+    "ndsm_shard_half_inplace_f32": (_P, _P) + (_I,) * 9 + (_F, _F, _F, _F, _P),
+    "ndsm_shard_residual_f32": (_P, _P, _P) + (_I,) * 10 + (_F, _F, _F, _P),
+    "ndsm_defect_sharded_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
 }
 
 _lock = threading.Lock()

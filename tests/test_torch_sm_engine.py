@@ -12,7 +12,16 @@ virtual CPU devices (tests/conftest.py).  Tolerances:
     atol 1e-10 on the mean-free solutions against JAX; against the port's
     own standalone sharded solves, equal cycles and atol 1e-14 (fp64);
   * against the port's PoissonBVP: equal cycles and atol 1e-12 (fp64),
-    cycles within 1 and atol 5e-10 (mixed).
+    cycles within 1 and atol 5e-10 (mixed);
+  * the one-level ``make_sharded_sweep`` / ``make_sharded_residual``
+    (tests/test_dist.py:29-75's cases, 8 shards, float64): atol 1e-12
+    (1e-11 after four sweeps) against JAX's single-device sweep and
+    residual, as there; bitwise against the port's unsharded ones where no
+    mean is taken (the all-Neumann mean sums in another order);
+  * the port's per-shard float64 defect loop against JAX's sharded df path
+    (``_mixed_group_df``: its per-shard double-float kernel, run in
+    interpret mode) on a 1-D and a 2 x 2 mesh: cycles within 2, atol
+    5e-10 (JAX's outer iterate is an f32 pair, the port's float64).
 """
 
 import numpy as np
@@ -20,11 +29,18 @@ import pytest
 import torch
 
 import ndsm_tpu
-from ndsm_tpu.parallel.shard import make_mesh as j_make_mesh
+from ndsm_tpu.parallel.shard import make_mesh as j_make_mesh, make_mesh_nd as j_make_mesh_nd
 from ndsm_tpu.parallel.sm_engine import ShardedPoissonBVP as JSharded
 from ndsm_tpu_torch import GridHierarchy, Options, PoissonBVP
-from ndsm_tpu_torch.parallel.shard import make_mesh
-from ndsm_tpu_torch.parallel.sm_engine import ShardedPoissonBVP
+from ndsm_tpu_torch.parallel.shard import make_mesh, make_mesh_nd
+from ndsm_tpu.ops import stencils as j_stencils
+from ndsm_tpu_torch.ops import stencils
+from ndsm_tpu_torch.parallel import collectives as C
+from ndsm_tpu_torch.parallel.sm_engine import (
+    ShardedPoissonBVP,
+    make_sharded_residual,
+    make_sharded_sweep,
+)
 
 torch.set_num_threads(1)
 
@@ -108,7 +124,7 @@ def test_pass_widths_and_level_plan():
     assert sb5._pass_width(0, f32) == 1  # 5 planes
     with pytest.raises(ValueError):  # 8 does not divide 44's extent
         _port(GridHierarchy.from_mesh((np.linspace(0, 1, 44),) * 3), BCS3, Options(), 8)
-    with pytest.raises(NotImplementedError):  # the 2-D mesh is not ported
+    with pytest.raises(ValueError, match="no axis 'y'"):  # the 1-D mesh lacks "y"
         ShardedPoissonBVP(h, BCS3, Options(), mesh=make_mesh(2, devices=["cpu"] * 2),
                           axis_names=("z", "y"))
 
@@ -187,3 +203,88 @@ def test_zero_rhs_and_output_dtype():
     np.testing.assert_allclose(u_b.numpy(), np.asarray(u_j), rtol=0, atol=5e-10)
     u_d, _ = sb.solve(u0, None, zero_rhs=True, output_dtype="float32")
     assert u_d.dtype == torch.float32 and torch.equal(u_d, u_b.float())
+
+
+@pytest.mark.parametrize("grid", [(4,), (2, 2)])
+def test_df_matches_jax_interpret_df(monkeypatch, grid):
+    """The port's sharded mixed solve (per-shard float64 defect, B11 / B11y)
+    against JAX's sharded df path, its kernels in interpret mode (at 32^3 on
+    the 2 x 2 mesh: JAX's kernel takes no smaller y block there)."""
+    n = 24 if len(grid) == 1 else 32
+    x = np.linspace(0.0, 1.0, n)
+    rng = np.random.default_rng(11)
+    rhs = rng.standard_normal((n, n, n))
+    names = ("z", "y")[: len(grid)]
+    monkeypatch.setenv("NDSM_TPU_PALLAS", "interpret")
+    monkeypatch.setenv("NDSM_TPU_PALLAS_MIN_POINTS", "0")
+    jmesh = j_make_mesh(grid[0]) if len(grid) == 1 else j_make_mesh_nd(grid, names)
+    jsb = JSharded(ndsm_tpu.GridHierarchy.from_mesh((x, x, x), ngrids=3), BCS3,
+                   ndsm_tpu.Options(precision="mixed"), mesh=jmesh, axis_names=names,
+                   min_rows_per_shard=2)
+    assert jsb.df_defect and jsb._df_upd is not None
+    u_j, info_j = jsb.solve(np.zeros_like(rhs), rhs)
+    k = int(np.prod(grid))
+    sb = ShardedPoissonBVP(GridHierarchy.from_mesh((x, x, x), ngrids=3), BCS3,
+                           Options(precision="mixed"),
+                           mesh=make_mesh_nd(grid, names, devices=["cpu"] * k), axis_names=names,
+                           min_rows_per_shard=2)
+    assert sb.df_defect
+    u, info = sb.solve(np.zeros_like(rhs), rhs)
+    assert info.ierr == 0 == info_j.ierr
+    assert abs(info.cycles - info_j.cycles) <= 2
+    np.testing.assert_allclose(u.numpy(), np.asarray(u_j), rtol=0, atol=5e-10)
+
+
+BCS_CASES = [
+    (("N", "N"), ("N", "N"), ("N", "N")),
+    (("D", "D"), ("D", "D"), ("N", "N")),
+    (("D", "N"), ("N", "D"), ("D", "D")),
+]
+
+
+def _one_level(shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape), rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize("bcs", BCS_CASES)
+def test_sharded_sweep_matches_single_device(bcs):
+    shape, dq = (16, 9, 11), np.array([0.7, 1.1, 0.9])
+    u, rhs = _one_level(shape, 3)
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    f, place = make_sharded_sweep(shape, bcs, dq, mesh, dtype=torch.float64)
+    got = C.unshard(f(place(u), place(rhs)), mesh.devices, 0)
+    want = np.asarray(j_stencils.rb_sweep(u, rhs, dq, bcs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    if not stencils.is_all_neumann(bcs):
+        assert torch.equal(got, stencils.rb_sweep(torch.as_tensor(u), torch.as_tensor(rhs),
+                                                  dq, bcs))
+
+
+def test_sharded_sweep_iterated():
+    shape, dq = (24, 12, 12), np.array([1.0, 1.0, 1.0])
+    bcs = (("D", "D"), ("N", "N"), ("N", "N"))
+    u, rhs = _one_level(shape, 4)
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    f, place = make_sharded_sweep(shape, bcs, dq, mesh, dtype=torch.float64)
+    want, got, rs = u, place(u), place(rhs)
+    for _ in range(4):
+        want = j_stencils.rb_sweep(want, rhs, dq, bcs)
+        got = f(got, rs)
+    np.testing.assert_allclose(C.unshard(got, mesh.devices, 0).numpy(), np.asarray(want),
+                               rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("bcs", BCS_CASES[:2])
+def test_sharded_residual_matches(bcs):
+    shape, dq = (16, 9, 11), np.array([0.8, 1.0, 1.2])
+    u, rhs = _one_level(shape, 5)
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    f, place = make_sharded_residual(shape, bcs, dq, mesh, dtype=torch.float64)
+    got = C.unshard(f(place(u), place(rhs)), mesh.devices, 0)
+    want = np.asarray(j_stencils.poisson_residual(u, rhs, dq, bcs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    assert torch.equal(got, stencils.poisson_residual(torch.as_tensor(u),
+                                                      torch.as_tensor(rhs), dq, bcs))
+    with pytest.raises(ValueError):  # 8 shards of 12 planes do not divide
+        make_sharded_residual((12, 9, 11), bcs, dq, mesh)
