@@ -6,18 +6,29 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
 
   1. device: the card's name and ``nvidia-smi`` name/power limit; the
-     kernels are built from ``ndsm_tpu_torch/csrc`` and the build timed.
+     kernels are built from ``ndsm_tpu_torch/csrc`` and the build timed;
+     ptxas's registers, stack and spills of every kernel ("[pass]" for
+     the multi-sweep pass).
   2. kernels: each CUDA kernel wrapper against its plain PyTorch version
      on the card, bitwise, each timed beside its plain version (CUDA
      events, warm, median of 7, plain-kernel-kernel-plain):
+       - the pass plan (``zc.pass_plan``) of every level of path 1;
        - the 3D smoothers and the defect at the main path's 220^3 and
          110^3 levels (float64 for the defect), three component BC sets;
-       - the one-lane calls of the lane kernels (zc_smooth_3d, which is
-         also fused_smooth_3d, and the residual and correction forms) at
-         the odd-nz shapes: path 1b's 55^3 level and 221x220x220;
-       - the lane kernels (the three lane forms on the three component
-         lanes stacked, at 220^3 and 110^3), also against three per-lane
-         zc kernel calls and with the Az lane frozen;
+       - the one-lane calls of the 3D red-black pass (zc_smooth_3d, which
+         is also fused_smooth_3d, and the residual and correction forms)
+         at path 1b's 55^3, 27^3, 13^3 and 6^3 levels, 221x220x220 and
+         2x3x5; at 220^3 timed against the previous design (2*ns
+         half-sweep launches + a residual launch) in turns, with device
+         busy times and the share of the bound ("[design]");
+       - the lane forms (the three forms on the three component lanes
+         stacked) at every level of path 1 (220^3 down to 6^3) and 2x3x5,
+         also against three per-lane zc kernel calls and with the Az lane
+         frozen; at 220^3 and 110^3 timed, and against the previous design
+         in turns;
+       - the pass plan's measurements ("[width]"): at every level, three
+         lanes, the half-sweeps, the plan as fixed and marching passes of
+         width 1, 2 and 3 (device busy time, each bitwise);
        - the 2D smoother (v2d) on six 220^2 and six 512^2 lanes (the chi
          faces of 220^3 and 512^3), all-Neumann and mixed BCs;
        - the all-Neumann 3D smoother at 220^3 and 256^3;
@@ -35,7 +46,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the golden rows (bench.py's gate: |err - golden| < 2e-3 golden); the
      launch counters are zeroed before the warm 220^3 run and every kernel
      of the path (the three lane forms, the defect, the three v2d forms)
-     must have launched during it, with no plain version run on the card.
+     must have launched during it, with no plain version run on the card;
+     the pass launches behind the 3D smoothing calls are counted (paths 1
+     and 1b).
      One more 220^3 run under torch.profiler gives the device busy time,
      the kernels that take it, and the chi phase's launches and idle share.
      Path 1b: the same 220^3 case with ``batch_components="off"`` (the
@@ -206,16 +219,58 @@ def device_ms(fn, reps: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    if not dev:
+    best = []
+    for _ in range(3):  # a profile now and then records a part or nothing: keep the fullest
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        if sum(e.count for e in dev) > sum(e.count for e in best):
+            best = dev
+        if sum(e.count for e in best) >= reps:  # every call launches at least once
+            break
+    if not best:
         raise AssertionError("the profiler recorded no device events")
-    return (sum(e.self_device_time_total for e in dev) / 1e3 / reps,
-            sum(e.count for e in dev) / reps)
+    return (sum(e.self_device_time_total for e in best) / 1e3 / reps,
+            sum(e.count for e in best) / reps)
+
+
+def device_ms_split(first, second, name, reps: int = 5):
+    """Device busy ms and events of one ``first()`` and one ``second()``,
+    as ``device_ms``, from one profile over ``reps`` calls of
+    each: the events whose kernel name holds ``name`` are ``second``'s,
+    the rest ``first``'s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    first(), second()
+    torch.cuda.synchronize()
+
+    def fewest(parts):
+        return min(sum(e.count for e in ev) for ev in parts)
+
+    best = [[], []]
+    for _ in range(3):  # a profile now and then records a part or nothing: keep the fullest
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                first()
+            for _ in range(reps):
+                second()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        parts = [[e for e in dev if (name in e.key) == mine] for mine in (False, True)]
+        if fewest(parts) > fewest(best):
+            best = parts
+        if fewest(best) >= reps:  # every call launches at least once
+            break
+    if not fewest(best):
+        raise AssertionError("the profiler recorded no device events")
+    return tuple((sum(e.self_device_time_total for e in ev) / 1e3 / reps,
+                  sum(e.count for e in ev) / reps) for ev in best)
 
 
 def time_pair(kern, plain):
@@ -271,6 +326,76 @@ class Stats:
                 f"{100 * bms / dms:.1f}% of it)")
 
 
+def previous_sweeps(u, cor, rhs, dq, bcs_list, ns, residual=False):
+    """The 3D red-black lane kernels' previous design (PRs 1-6), for
+    timing beside the pass: 2*ns half-sweep launches over the (B, nz, ny,
+    nx) stack, the first out of place (reading u + cor), then one residual
+    launch.  Returns u' (and r)."""
+    import torch
+
+    from ndsm_tpu_torch.ops import stencils, zc
+    from ndsm_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nb, nz, ny, nx = (int(s) for s in u.shape)
+    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
+    color, dmask, act = zc._lane_args(bcs_list, (True,) * nb)
+    out = torch.empty_like(u)
+    stream = torch.cuda.current_stream().cuda_stream
+    rcs = [lib.ndsm_lane_half_oop_f32(
+        u.data_ptr(), None if cor is None else cor.data_ptr(), None, rhs.data_ptr(),
+        out.data_ptr(), nb, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream)]
+    for k in range(1, 2 * ns):
+        rcs.append(lib.ndsm_lane_half_inplace_f32(
+            out.data_ptr(), rhs.data_ptr(), nb, nz, ny, nx, color, dmask, act, k % 2,
+            wz, wy, wx, w0, stream))
+    if not residual:
+        cuda_build.check(max(rcs), "previous design")
+        return out
+    r = torch.empty_like(u)
+    rcs.append(lib.ndsm_lane_residual_f32(out.data_ptr(), rhs.data_ptr(), r.data_ptr(), nb, nz,
+                                          ny, nx, dmask, act, wz, wy, wx, stream))
+    cuda_build.check(max(rcs), "previous design")
+    return out, r
+
+
+def compare_designs(key, label, shape, nb, plain, previous, kern):
+    """The pass beside the previous design on the same inputs, timed in
+    turns (plain, previous, pass, pass, previous, plain; CUDA events, min
+    of two medians), then each design's device busy time under
+    torch.profiler, and the share of the bound."""
+    from ndsm_tpu_torch.ops import zc
+
+    pts = nb * math.prod(shape)
+    t = [time_ms(f) for f in (plain, previous, kern, kern, previous, plain)]
+    pms, oms, kms = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
+    (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, "lane_pass")
+    bms, by = bound(key, pts, MS)
+    res = "residual" in key
+    plan = zc.pass_plan(shape, MS, nb, res)
+    log(f"[design] {key:32s} {label}: previous ({2 * MS}{' + 1' if res else ''} launches) "
+        f"{oms:.4f} ms, busy {obusy:.4f} ms ({oev:.0f} events); pass ({len(plan)} launches, "
+        f"widths {[p.width for p in plan]}) {kms:.4f} ms, busy {kbusy:.4f} ms ({kev:.0f} "
+        f"events); busy {obusy / kbusy:.2f}x, events {oms / kms:.2f}x faster; plain "
+        f"{pms:.4f} ms; bound {bms:.4f} ms ({by}) = {100 * bms / kbusy:.1f}% of the pass's busy "
+        f"time, {100 * bms / obusy:.1f}% of the previous design's; pass faster: "
+        f"{kbusy < obusy}")
+
+
+def log_pass_plans(h, nb=3):
+    """Each level's pass plan at ns = MS (smoothing; the residual form's
+    last pass in brackets)."""
+    from ndsm_tpu_torch.ops import zc
+
+    for shape in h.shapes:
+        plan, res = zc.pass_plan(shape, MS, nb), zc.pass_plan(shape, MS, nb, True)[-1]
+        log(f"[pass] plan {'x'.join(map(str, shape))} x{nb} ns={MS}: " + "; ".join(
+            f"w={p.width} tile {p.tile} halo {p.halo} window {p.window} ring {p.ring} smem "
+            f"{p.smem_bytes} B grid {p.grid}" for p in plan)
+            + f" [residual pass: halo {res.halo} tile {res.tile} ring {res.ring} smem "
+              f"{res.smem_bytes} B grid {res.grid}]")
+
+
 def phase_device():
     import torch
 
@@ -296,7 +421,11 @@ def phase_device():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif entry and ("stack frame" in line or "Used" in line):
-            log(f"[build] {entry[:60]}: {line.split(':', 1)[-1].strip()}")
+            what = line.split(':', 1)[-1].strip()
+            log(f"[build] {entry[:60]}: {what}")
+            if "lane_pass" in entry:  # the multi-sweep pass (32- and 64-bit indexing)
+                bits = 64 if "IyE" in entry else 32
+                log(f"[pass] ptxas, lane_pass ({bits}-bit lane indices): {what}")
             entry = entry if "stack frame" in line else None
     return name, smi
 
@@ -318,6 +447,7 @@ def phase_kernels(stats: Stats):
 
     # -- the 3D smoothers and the defect (main path, component solves)
     h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
+    log_pass_plans(h)
     for level in (0, 1):
         shape, dq = h.shapes[level], h.dq[level]
         n = shape[0]
@@ -373,9 +503,11 @@ def phase_kernels(stats: Stats):
                         lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
                         pts, 1, f"{n}^3 {tag} zero-rhs+update", head)
 
-    # -- the one-lane calls at odd nz: path 1b's 55^3 level, and the shape
-    # class the JAX package sends to fused_smooth_3d (221 x 220 x 220)
-    for shape, dq in ((h.shapes[2], h.dq[2]), ((221, 220, 220), h.dq[0])):
+    # -- the one-lane calls at odd nz and on the small levels: path 1b's
+    # 55^3, 27^3, 13^3 and 6^3 levels, the shape class the JAX package sends
+    # to fused_smooth_3d (221 x 220 x 220), and the smallest extents (2, 3, 5)
+    small = [(h.shapes[l], h.dq[l]) for l in range(2, h.ngrids)] + [((2, 3, 5), h.dq[0])]
+    for shape, dq in small[:1] + [((221, 220, 220), h.dq[0])] + small[1:]:
         for tag, bcs in BC_SETS.items():
             u, rhs, cor = f32(shape), f32(shape), f32(shape)
             for ns in SWEEPS:
@@ -395,16 +527,39 @@ def phase_kernels(stats: Stats):
             f"correction) bitwise equal to their plain versions (three BC sets, ns in {SWEEPS})")
         del u, rhs, cor
 
-    # -- the lane kernels: the three component lanes of the batched solve
+    # -- the one-lane calls against the previous design, in turns (220^3)
+    shape, dq = h.shapes[0], h.dq[0]
+    u, rhs, cor = f32(shape), f32(shape), f32(shape)
+    bcs = BC_SETS["Ax"]
+    one = ((bcs,), u[None], rhs[None], cor[None])
+    compare_designs(
+        "zc_smooth_3d", "220^3 Ax", shape, 1,
+        lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, MS),
+        lambda: previous_sweeps(one[1], None, one[2], dq, one[0], MS),
+        lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS))
+    compare_designs(
+        "zc_smooth_residual_3d", "220^3 Ax", shape, 1,
+        lambda: zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, MS),
+        lambda: previous_sweeps(one[1], None, one[2], dq, one[0], MS, residual=True),
+        lambda: zc.zc_smooth_residual_3d(u, rhs, dq, bcs, MS))
+    compare_designs(
+        "zc_smooth_cor_3d", "220^3 Ax", shape, 1,
+        lambda: zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, MS),
+        lambda: previous_sweeps(one[1], one[3], one[2], dq, one[0], MS),
+        lambda: zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, MS))
+    del u, rhs, cor, one
+
+    # -- the lane kernels: the three component lanes of the batched solve,
+    # timed at 220^3 and 110^3, checked at every level of path 1
     lanes = tuple(BC_SETS.values())
     frozen = (True, True, False)  # Az stops first on the main path
-    for level in (0, 1):
-        shape, dq = h.shapes[level], h.dq[level]
-        n = shape[0]
+    for level in list(range(h.ngrids)) + [None]:
+        shape, dq = (h.shapes[level], h.dq[level]) if level is not None else ((2, 3, 5), h.dq[0])
+        n = "x".join(map(str, shape)) if len(set(shape)) > 1 else f"{shape[0]}^3"
         pts = 3 * int(np.prod(shape))
         u, rhs, cor = f32((3,) + shape), f32((3,) + shape), f32((3,) + shape)
         for ns in SWEEPS:
-            lab = f"{n}^3 x3 ns={ns}"
+            lab = f"{n} x3 ns={ns}"
             full = {
                 "fused_smooth_3d_batched":
                     (fused.fused_smooth_3d_batched(u, rhs, dq, lanes, ns),
@@ -448,10 +603,13 @@ def phase_kernels(stats: Stats):
                         stats.note(key, *compare(
                             f"{key}({part_name}) {lab} Az frozen, lane {b}", g[b], want_b))
             del full, part
-        log(f"[kernels] {n}^3 x3 lanes: lane forms bitwise equal to their plain versions "
+        log(f"[kernels] {n} x3 lanes: lane forms bitwise equal to their plain versions "
             f"and to per-lane zc kernels, all lanes active and Az frozen (ns in {SWEEPS})")
-        head = n == 220
-        lab = f"{n}^3 x3 ns={MS}"
+        if level not in (0, 1):
+            del u, rhs, cor
+            continue
+        head = level == 0
+        lab = f"{n} x3 ns={MS}"
         stats.timed("fused_smooth_3d_batched",
                     lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS),
                     lambda: fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, MS),
@@ -464,6 +622,22 @@ def phase_kernels(stats: Stats):
                     lambda: fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, MS),
                     lambda: fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, MS),
                     pts, MS, lab, head)
+        # the pass beside the previous design's half-sweep launches
+        compare_designs(
+            "fused_smooth_3d_batched", lab, shape, 3,
+            lambda: fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, MS),
+            lambda: previous_sweeps(u, None, rhs, dq, lanes, MS),
+            lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS))
+        compare_designs(
+            "fused_smooth_residual_3d_batched", lab, shape, 3,
+            lambda: fused.fused_smooth_residual_3d_batched_plain(u, rhs, dq, lanes, MS),
+            lambda: previous_sweeps(u, None, rhs, dq, lanes, MS, residual=True),
+            lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS))
+        compare_designs(
+            "fused_smooth_cor_3d_batched", lab, shape, 3,
+            lambda: fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, MS),
+            lambda: previous_sweeps(u, cor, rhs, dq, lanes, MS),
+            lambda: fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, MS))
         # the lane call beside the three per-lane calls it replaces
         lms, zms = time_pair(
             lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS),
@@ -666,6 +840,53 @@ def phase_compact_kernels(stats: Stats):
         del u, rhs, cor, R, B, rR, rB
 
 
+def phase_pass_widths():
+    """The measurements behind ``zc.pass_plan``'s rule: at every level of
+    the 220^3 hierarchy, three component lanes, ns = MS, smoothing form,
+    the device busy time of the previous design's half-sweeps, of the plan
+    as fixed, and of marching passes of width 1, 2 and 3 (and the resident
+    pass where a lane fits whole); every result bitwise against the
+    half-sweeps'."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch.ops import zc
+
+    h = hierarchy_of(220)
+    lanes = tuple(BC_SETS.values())
+    rng = np.random.default_rng(2027)
+    act = (True,) * 3
+    for level, shape in enumerate(h.shapes):
+        dq = h.dq[level]
+        u, rhs = (torch.as_tensor(rng.standard_normal((3,) + shape), dtype=torch.float32,
+                                  device="cuda") for _ in range(2))
+        prev = lambda: previous_sweeps(u, None, rhs, dq, lanes, MS)  # noqa: E731
+        want = prev()
+        plans = {"plan": zc.pass_plan(shape, MS, 3)}
+        for w in (1, 2, 3):  # marching, whatever the lane's size
+            widths = [w] * (MS // w) + ([MS % w] if MS % w else [])
+            plan = tuple(zc.pass_tile(shape, x, False, 3) for x in widths)
+            if plan[0].resident:  # a whole-lane tile would run resident: halve it in z
+                plan = tuple(zc.pass_tile(shape, x, False, 3, (max(1, shape[0] // 2),) + shape[1:])
+                             for x in widths)
+            plans[f"w={w}"] = plan
+        whole = zc.pass_tile(shape, MS, False, 3, shape)
+        if whole.resident and not plans["plan"][0].resident:  # the size rule's other side
+            plans["resident"] = (whole,)
+        cells = []
+        for tag, plan in plans.items():
+            if any(p.smem_bytes > zc.MAX_SMEM for p in plan):
+                continue
+            run = lambda plan=plan: zc.run_passes(u, None, rhs, dq, lanes, act, tag, plan)[0]  # noqa: E731
+            compare(f"pass {tag} {shape}", run(), want)
+            (pb, _), (kb, _) = device_ms_split(prev, run, "lane_pass")
+            kind = "resident" if plan[0].resident else "marching"
+            cells.append(f"{tag} ({kind}, {len(plan)} launches) {kb:.4f} ms")
+        log(f"[width] {'x'.join(map(str, shape))} x3 ns={MS} smoothing, device busy: previous "
+            f"design ({2 * MS} launches) {pb:.4f} ms; " + "; ".join(cells))
+        del u, rhs, want
+
+
 def check_counts(what: str, launches: dict, plain: dict, need, never=()) -> None:
     log(f"[{what}] launches {launches}; plain versions on the card {plain}")
     missing = [k for k in need if launches[k] <= 0]
@@ -691,6 +912,19 @@ PATH3B = ("compact_smooth_3d", "split_colors_3d", "merge_colors_3d") + _COMMON
 DENSE_3D = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d",
             "fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
             "fused_smooth_cor_3d_batched")
+
+
+def log_passes(what, launches, passes, keys):
+    """The 3D red-black kernel launches of a warm call: the wrapper calls,
+    the pass launches behind them, and what the previous design launched
+    for the same calls at ns = MS (2*MS half-sweeps a call, +1 for a
+    residual)."""
+    calls = sum(launches[k] for k in keys)
+    prev = sum(launches[k] * (2 * MS + ("residual" in k)) for k in keys)
+    log(f"[{what}] 3D red-black smoothing: {calls} wrapper calls, {passes} pass launches "
+        f"({passes / max(calls, 1):.2f} a call); the previous design: {prev} launches")
+    if calls and not passes:
+        raise AssertionError(f"{what}: the pass kernel never launched")
 
 
 _CASES = {}
@@ -761,6 +995,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_counts("main 220^3 warm", launches, ops.plain_cuda_counts(), PATH1)
+    log_passes("path 1", launches, ops.pass_launches(), PATH1[:3])
     log(f"[main] 220^3 warm: chi phase {info.phases['chi']:.4f} s; solve3d "
         f"{info.phases['solve3d']:.4f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -773,6 +1008,7 @@ def phase_main_path():
     launches_b = ops.launch_counts()
     check_counts("main 220^3 warm, batch_components=off", launches_b, ops.plain_cuda_counts(),
                  PATH1B)
+    log_passes("path 1b", launches_b, ops.pass_launches(), PATH1B[:3])
     da = float(np.abs(A_on - A_off).max())
     db = float(np.abs(B_on - B_off).max())
     del B_on, B_off
@@ -1304,6 +1540,7 @@ def main() -> int:
     name, _ = phase_device()
     stats = Stats()
     phase_kernels(stats)
+    phase_pass_widths()
     phase_compact_kernels(stats)
     phase_sharded_kernels(stats)
     path1, path1b, path3, path3b, ref1b = phase_main_path()

@@ -43,7 +43,9 @@ max|r| of its last defect, taken once with its final correction applied.
 Not ported, because it exists only for the TPU (ROADMAP.md "Not ported"):
 the padded work storage (``_plan_padding``, ``_pad0/_unpad0``,
 ``_work_shapes``, ``_interp_w/_restrict_w``; the port's kernels take every
-shape), the pass-width composition ``_pallas_nsweeps`` (and with it the
+shape), the pass-width composition ``_pallas_nsweeps``, which is a TPU
+calibration (the port splits a smoothing call into passes inside the
+kernel wrapper, by ``ops/zc.pass_plan``, a rule set for the H100; and the
 per-lane serial calls of ``_compact_fns``: the port's compact kernel takes
 the lanes in one launch), and the retry that
 rebuilt the solver with ``use_pallas="off"`` after a kernel-compile

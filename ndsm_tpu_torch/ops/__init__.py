@@ -3,8 +3,10 @@
 ``KERNELS`` lists the wrapper of every hand-written kernel with its plain
 version, the TPU kernel it replaces and its CUDA source;
 ``launch_counts``/``reset_launch_counts`` read and zero their launch
-counters, ``plain_cuda_counts`` the number of times a plain version ran on
-a CUDA tensor.
+counters (wrapper calls that launched), ``pass_launches`` the launches of
+the 3D red-black pass kernel behind them (``zc.sweeps_cuda.passes``),
+``plain_cuda_counts`` the number of times a plain version ran on a CUDA
+tensor.
 """
 
 from . import compact, df, df_sharded, fused, v2d, zc, zc_sharded
@@ -102,6 +104,10 @@ def launch_counts() -> dict:
     return {k[0]: k[1].launches for k in KERNELS}
 
 
+def pass_launches() -> int:
+    return zc.sweeps_cuda.passes
+
+
 def plain_cuda_counts() -> dict:
     return {k[2].__name__: k[2].plain_cuda_calls for k in KERNELS}
 
@@ -110,6 +116,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k[1].launches = 0
         k[2].plain_cuda_calls = 0
+    zc.sweeps_cuda.passes = 0
 
 
 __all__ = [
@@ -129,6 +136,7 @@ __all__ = [
     "fused_smooth_cor_3d_batched",
     "KERNELS",
     "launch_counts",
+    "pass_launches",
     "plain_cuda_counts",
     "reset_launch_counts",
 ]

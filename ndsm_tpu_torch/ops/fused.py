@@ -17,7 +17,7 @@ frozen lane comes back unchanged (the correction form ignores its
 lane's result does not depend on which other lanes are active.
 
 The port has one family of 3D red-black kernels, ``csrc/fused_smooth.cu``,
-launched by ops/zc.py's ``sweeps_cuda``/``residual_cuda``: the wrappers
+whose multi-sweep pass ops/zc.py's ``sweeps_cuda`` launches: the wrappers
 here call it with B lanes, ops/zc.py's with one.  ``fused_smooth_3d`` (one
 level, one BC set) is therefore ops/zc.py's ``zc_smooth_3d`` itself: the
 two TPU kernels it replaces compute the same sweeps on two TPU layouts,
@@ -25,16 +25,17 @@ and the port keeps neither layout.
 
 Each lane wrapper, like ops/zc.py's:
 
-  * on a CUDA tensor launches the lane kernels (one launch per half-sweep
-    for all lanes, the first out of place; one residual launch) and adds
-    one to its ``launches`` count, or raises;
+  * on a CUDA tensor launches the pass kernel (``ceil(nsweeps / w)``
+    launches for all lanes, out of place, the first reading u + cor, the
+    last writing the residual; ``zc.pass_plan`` gives w) and adds one to
+    its ``launches`` count, or raises;
   * on a CPU tensor runs its plain PyTorch version below: per-lane masked
     sweeps from ops/stencils.py (``plain_cuda_calls`` counts any call of a
     plain version on a CUDA tensor).
 
 The wrappers are functional: inputs are never modified.  Unlike the TPU
-kernel there is no mask-code array, no VMEM window and no tile gate: every
-3D shape with extents >= 2 is taken.
+kernel there is no mask-code array and no tile gate: every 3D shape with
+extents >= 2 is taken.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ from .zc import (
     check_config,
     check_level,
     count_plain,
-    residual_cuda,
     sweeps_cuda,
     zc_smooth_3d,
     zc_smooth_3d_plain,
@@ -200,8 +200,7 @@ def fused_smooth_residual_3d_batched(u, rhs, dq, bcs_list, nsweeps: int, active=
     bcs_list, active = check_lanes(name, (u, rhs), dq, bcs_list, nsweeps, active)
     if u.device.type == "cpu":
         return fused_smooth_residual_3d_batched_plain(u, rhs, dq, bcs_list, nsweeps, active)
-    out = sweeps_cuda(u, None, rhs, dq, bcs_list, nsweeps, active, name)
-    r = residual_cuda(out, rhs, dq, bcs_list, active, name)
+    out, r = sweeps_cuda(u, None, rhs, dq, bcs_list, nsweeps, active, name, residual=True)
     fused_smooth_residual_3d_batched.launches += 1
     return out, r
 

@@ -6,11 +6,12 @@ Each wrapper takes the level's tensors and its static configuration (dq,
 bcs, number of sweeps):
 
   * on a CUDA tensor it launches the hand-written kernels and adds one to
-    its ``launches`` count, or raises.  The red-black half-sweeps and the
-    residual are one-lane calls of the lane kernels of
-    ``csrc/fused_smooth.cu`` (launched by :func:`sweeps_cuda` and
-    :func:`residual_cuda`, which ops/fused.py calls with B lanes); the
-    mean's reduction passes are ``csrc/zc_smooth.cu``.  Built at first use;
+    its ``launches`` count, or raises.  The sweeps, with the residual
+    fused into the last pass, are one-lane calls of the multi-sweep pass
+    kernel of ``csrc/fused_smooth.cu`` (launched by :func:`sweeps_cuda`,
+    which ops/fused.py calls with B lanes); the mean form runs that file's
+    half-sweep kernels and ``csrc/zc_smooth.cu``'s reduction passes.
+    Built at first use;
   * on a CPU tensor it runs its plain PyTorch version below, built from
     ops/stencils.py.
 
@@ -28,22 +29,25 @@ kernels' fixed order (``reduce.strided_block_sum``).  The wrappers are
 functional: inputs are never modified.
 
 Kernel design (see the source notes in csrc/fused_smooth.cu and
-csrc/zc_smooth.cu): one launch per half-sweep, 2*nsweeps launches per
-call.  The first half-sweep runs out of place (into a new tensor, adding
-``cor`` on load for the correction form), the rest in place on that
-tensor; the residual form adds one residual launch.  The mean form runs
-each sweep out of place, ping-ponging between two buffers: its first
+csrc/zc_smooth.cu): the first three wrappers run ``ceil(nsweeps / w)``
+launches of the multi-sweep pass, each running w sweeps over a
+shared-memory ring of planes, out of place (ping-ponging between the
+result and one scratch stack; the first pass adds ``cor`` on load, the
+last writes the residual of its final state).  :func:`pass_plan` fixes w
+and the tile from the shape alone, by a rule set from measurements on the
+H100 (PERF.md §6).  The mean form runs each sweep out of place as two
+half-sweep launches, ping-ponging between two buffers: its first
 half-sweep subtracts the previous sweep's mean on load (read from a device
 scalar, never from the host), and two launches per sweep reduce the swept
-state into the next mean.  Unlike the TPU kernels there is no shape gate,
-no pass width and no padded storage: every 3D shape with extents >= 2 is
-taken.
+state into the next mean.  Unlike the TPU kernels there is no shape gate
+and no padded storage: every 3D shape with extents >= 2 is taken.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +68,10 @@ __all__ = [
     "mean_blocks",
     "sweeps_cuda",
     "residual_cuda",
+    "PassTile",
+    "pass_tile",
+    "pass_plan",
+    "run_passes",
 ]
 
 #: Most blocks of the first pass of the mean's reduction.
@@ -201,37 +209,175 @@ def _lane_args(bcs_list, active):
     )
 
 
-def sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps: int, active, what: str) -> torch.Tensor:
-    """2*nsweeps half-sweep launches over a (B, nz, ny, nx) stack, lane b
-    with ``bcs_list[b]``: the first out of place into a new stack (reading
-    u + cor when cor is given), the rest in place on it, each over the
-    lanes ``active`` marks only."""
+# The pass plan.  Constants of the kernel and the H100 (csrc/fused_smooth.cu:
+# kMaxSmem, kAhead, kRows * kPassThreads / 32; 132 SMs) and of the rule, set
+# from the widths, tiles and chunks measured on the card (PERF.md §6).
+MAX_SMEM = 232448
+SMS = 132
+#: Planes a block copies ahead of the one its step needs.
+PASS_AHEAD = 1
+#: The largest window in y and in x (a lane owns two columns of it, a
+#: warp four rows).
+PASS_WINDOW = 64
+#: Sweeps a pass: a smoothing call of ns sweeps is ceil(ns / w) passes.
+PASS_WIDTH = 2
+#: Shared memory the default tile may take (one block an SM).
+PASS_SMEM = 226 * 1024
+#: Most points of a lane that the plan gives a resident pass (one block a
+#: lane is faster than marching tiles only on the smallest levels).
+PASS_RESIDENT = 16 ** 3
+
+
+def _chunk(nz: int, blocks_per_chunk: int, halo: int, width: int) -> int:
+    """Planes of a z chunk: the fewest block-steps on the most loaded SM.
+    A block marches cz + 2 * halo planes and 2 * width + 1 steps more;
+    ceil(nz / cz) chunks of ``blocks_per_chunk`` blocks run in waves of
+    SMS blocks (one block an SM: kernel's launch bounds)."""
+    def cost(cz):
+        waves = -(-(-(-nz // cz) * blocks_per_chunk) // SMS)
+        return waves * (cz + 2 * halo + 2 * width + 1)
+    return min(range(min(nz, 4), nz + 1), key=lambda cz: (cost(cz), -cz))
+
+
+class PassTile(NamedTuple):
+    """One launch of the pass: ``width`` sweeps; the residual of the final
+    state when ``residual``; ``halo`` = 2 * width (+1 with the residual);
+    the output ``tile`` (cz, ty, tx) of a block; the largest ``window``
+    (tile + 2 * halo along each axis, clamped to the shape); the planes of
+    each ``ring`` (2 * width + 2 + PASS_AHEAD, +1 with the residual); the
+    shared memory of a block (the rings of u and rhs; cor goes through
+    registers); the ``grid`` (tiles in y times x, z chunks, lanes); whether
+    the pass is ``resident``: one tile holds the whole lane and all its
+    planes of u and rhs fit in shared memory, so there is no march
+    (``ring`` = nz)."""
+
+    width: int
+    residual: bool
+    halo: int
+    tile: Tuple[int, int, int]
+    window: Tuple[int, int, int]
+    ring: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    resident: bool
+
+
+def pass_tile(shape, width: int, residual: bool = False, nb: int = 1,
+              tile: Optional[Tuple[int, int, int]] = None) -> PassTile:
+    """The geometry of one pass of ``width`` sweeps over an (nb,) + shape
+    stack: the default tile, or ``tile`` (cz, ty, tx), cut to the shape."""
+    nz, ny, nx = (int(n) for n in shape)
+    width = int(width)
+    halo = 2 * width + (1 if residual else 0)
+    ring = 2 * width + 2 + PASS_AHEAD + (1 if residual else 0)
+    if tile is None:
+        tx = min(nx, PASS_WINDOW - 2 * halo)
+        while True:  # the widest rows that leave room for a tile row
+            sx = -(-min(nx, tx + 2 * halo) // 2) * 2
+            rows = PASS_SMEM // (2 * ring * sx * 4)
+            if rows > 2 * halo or tx <= 2:
+                break
+            tx -= 2
+        ty = min(ny, PASS_WINDOW - 2 * halo, max(1, rows - 2 * halo))
+        tile = (_chunk(nz, -(-ny // ty) * -(-nx // tx) * int(nb), halo, width), ty, tx)
+    cz, ty, tx = (min(int(t), n) for t, n in zip(tile, (nz, ny, nx)))
+    window = tuple(min(n, t + 2 * halo) for t, n in zip((cz, ty, tx), (nz, ny, nx)))
+    grid = (-(-ny // ty) * -(-nx // tx), -(-nz // cz), int(nb))
+    # a shared row holds the even columns, then the odd ones
+    plane = window[1] * (-(-window[2] // 2) * 2) * 4
+    resident = (cz, ty, tx) == (nz, ny, nx) and 2 * nz * plane <= MAX_SMEM
+    if resident:
+        ring = nz
+    smem = 2 * ring * plane
+    return PassTile(width, bool(residual), halo, (cz, ty, tx), window, ring, smem, grid,
+                    resident)
+
+
+def _resident(shape) -> bool:
+    """Whether a lane of ``shape`` takes a resident pass: small enough, and
+    u and rhs fit shared memory whole within the largest window."""
+    nz, ny, nx = shape
+    return (nz * ny * nx <= PASS_RESIDENT and ny <= PASS_WINDOW and nx <= PASS_WINDOW
+            and 2 * nz * ny * (-(-nx // 2) * 2) * 4 <= MAX_SMEM)
+
+
+def pass_plan(shape, nsweeps: int, nb: int = 1, residual: bool = False
+              ) -> Tuple[PassTile, ...]:
+    """The passes of a smoothing call of ``nsweeps`` sweeps: one resident
+    pass of all of them when a lane fits shared memory whole (the small
+    levels), else widths of ``PASS_WIDTH`` and a last narrower one for the
+    remainder; the last pass writes the residual when ``residual``.
+    Memoised (it runs on every smoothing call)."""
+    return _plan(tuple(int(s) for s in shape), int(nsweeps), int(nb), bool(residual),
+                 PASS_WIDTH)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shape, ns, nb, residual, width):
+    if _resident(shape):
+        return (pass_tile(shape, ns, residual, nb, shape),)
+    widths = [width] * (ns // width) + ([ns % width] if ns % width else [])
+    last = len(widths) - 1
+    return tuple(pass_tile(shape, w, residual and i == last, nb) for i, w in enumerate(widths))
+
+
+@functools.lru_cache(maxsize=256)
+def _pass_args(dq, bcs_list, active):
+    """The weights and the lanes' C arrays of a pass launch, kept per
+    configuration: they are built on the host, and the smoothing calls of
+    a solve repeat a few configurations many times."""
+    return stencils.stencil_weights(dq, torch.float32) + _lane_args(bcs_list, active)
+
+
+def run_passes(u, cor, rhs, dq, bcs_list, active, what: str, plan):
+    """Launch the passes of ``plan`` over a (B, nz, ny, nx) stack, lane b
+    with ``bcs_list[b]``, out of place: the first reads u + cor when cor
+    is given, each later one the previous pass's output, ping-ponging so
+    that the last writes the returned stack.  Returns (u', r), r None
+    unless the last pass writes the residual.  ``sweeps_cuda.passes``
+    counts the launches."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nb, nz, ny, nx = (int(s) for s in u.shape)
-    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    color, dmask, act = _lane_args(bcs_list, active)
+    (wz, wy, wx), w0, color, dmask, act = _pass_args(
+        tuple(float(q) for q in dq), tuple(bcs_list), tuple(bool(a) for a in active))
     out = torch.empty_like(u)
+    tmp = torch.empty_like(u) if len(plan) > 1 else None
+    r = torch.empty_like(u) if plan[-1].residual else None
+    src = u
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.ndsm_lane_half_oop_f32(
-            u.data_ptr(), None if cor is None else cor.data_ptr(), None, rhs.data_ptr(),
-            out.data_ptr(), nb, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream,
-        )
-        cuda_build.check(rc, what)
-        for k in range(1, 2 * int(nsweeps)):
-            rc = lib.ndsm_lane_half_inplace_f32(
-                out.data_ptr(), rhs.data_ptr(), nb, nz, ny, nx, color, dmask, act,
-                k % 2, wz, wy, wx, w0, stream,
+        for i, p in enumerate(plan):
+            dst = out if (len(plan) - 1 - i) % 2 == 0 else tmp
+            rc = lib.ndsm_lane_pass_f32(
+                src.data_ptr(), cor.data_ptr() if i == 0 and cor is not None else None,
+                rhs.data_ptr(), dst.data_ptr(), r.data_ptr() if p.residual else None,
+                nb, nz, ny, nx, color, dmask, act, p.width, *p.tile, wz, wy, wx, w0, stream,
             )
             cuda_build.check(rc, what)
-    return out
+            sweeps_cuda.passes += 1
+            src = dst
+    return out, r
+
+
+def sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps: int, active, what: str,
+                residual: bool = False):
+    """``nsweeps`` sweeps of a (B, nz, ny, nx) stack, lane b with
+    ``bcs_list[b]``, reading u + cor when cor is given: the passes of
+    :func:`pass_plan`.  Returns u', or (u', r) with ``residual``."""
+    plan = pass_plan(u.shape[1:], nsweeps, int(u.shape[0]), residual)
+    out, r = run_passes(u, cor, rhs, dq, bcs_list, active, what, plan)
+    return (out, r) if residual else out
+
+
+sweeps_cuda.passes = 0
 
 
 def residual_cuda(u, rhs, dq, bcs_list, active, what: str) -> torch.Tensor:
     """One residual launch over a (B, nz, ny, nx) stack; zero on each
-    lane's Dirichlet faces and on the lanes ``active`` does not mark."""
+    lane's Dirichlet faces and on the lanes ``active`` does not mark (the
+    colour-split route's residual, ops/compact.py)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -316,9 +462,8 @@ def zc_smooth_residual_3d(u, rhs, dq, bcs, nsweeps: int
     bcs = check_config("zc_smooth_residual_3d", dq, bcs, nsweeps)
     if u.device.type == "cpu":
         return zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps)
-    name = "zc_smooth_residual_3d"
-    out = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,), name)
-    r = residual_cuda(out, rhs[None], dq, (bcs,), (True,), name)
+    out, r = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,),
+                         "zc_smooth_residual_3d", residual=True)
     zc_smooth_residual_3d.launches += 1
     return out[0], r[0]
 

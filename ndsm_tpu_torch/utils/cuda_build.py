@@ -58,6 +58,8 @@ _SIGNATURES = {
     "ndsm_lane_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
                                _F, _F, _F, _F, _P),
     "ndsm_lane_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _F, _F, _F, _P),
+    "ndsm_lane_pass_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _P),
     "ndsm_compact_half_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
                               _I, _F, _F, _F, _F, _P),
     "ndsm_compact_split_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _IP, _P),
