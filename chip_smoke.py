@@ -15,6 +15,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        - the pass plan (``zc.pass_plan``) of every level of path 1;
        - the 3D smoothers and the defect at the main path's 220^3 and
          110^3 levels (float64 for the defect), three component BC sets;
+         the defect's four forms also at odd extents (221x219x37,
+         37x45x29, 2x3x5: partial column tiles, a short last z chunk);
        - the one-lane calls of the 3D red-black pass (zc_smooth_3d, which
          is also fused_smooth_3d, and the residual and correction forms)
          at path 1b's 55^3, 27^3, 13^3 and 6^3 levels, 221x220x220 and
@@ -29,8 +31,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        - the pass plan's measurements ("[width]"): at every level, three
          lanes, the half-sweeps, the plan as fixed and marching passes of
          width 1, 2 and 3 (device busy time, each bitwise);
-       - the 2D smoother (v2d) on six 220^2 and six 512^2 lanes (the chi
-         faces of 220^3 and 512^3), all-Neumann and mixed BCs;
+       - the 2D smoother (v2d) at every level it smooths on the chi faces
+         of a 220^3 and a 512^3 box (220^2 down to 6^2, 512^2 down to
+         4^2), (221, 220), the one-block/cluster boundaries (168^2,
+         169^2, 234^2, 235^2) and 700^2 (past a 16-block cluster: the
+         global route), one lane and six, all-Neumann and mixed BCs,
+         each shape's plan printed ("[v2d plan]": the one-block, cluster or
+         global route, C, rows a block, shared bytes); timed on six 220^2
+         and six 512^2 lanes; the lane kernel against the previous design
+         (the one-block global-memory kernel, still the route of lanes past
+         a 16-block cluster, also held bitwise there) in turns at six
+         110^2, 220^2 and 512^2 lanes,
+         with device busy times ("[design]"); the plan's cluster size
+         against larger ones at six 220^2 and 512^2 lanes ("[v2d C]");
+       - the defect's z-marching tile against the previous design (one
+         thread a point) in turns at 220^3, zero-rhs + update ("[design]");
        - the all-Neumann 3D smoother at 220^3 and 256^3;
        - the colour-split smoother (compact_smooth_3d) with its split and
          merge passes at 220^3, 110^3, 55^3 and 221x220x221 (odd nx), three
@@ -48,7 +63,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      of the path (the three lane forms, the defect, the three v2d forms)
      must have launched during it, with no plain version run on the card;
      the pass launches behind the 3D smoothing calls are counted (paths 1
-     and 1b).
+     and 1b); each v2d form launched once a float32 chi level and V-cycle
+     (85 at 220^3), on the one-block and cluster routes and never the
+     global one.
      One more 220^3 run under torch.profiler gives the device busy time,
      the kernels that take it, and the chi phase's launches and idle share.
      Path 1b: the same 220^3 case with ``batch_components="off"`` (the
@@ -237,11 +254,13 @@ def device_ms(fn, reps: int = 5):
             sum(e.count for e in best) / reps)
 
 
-def device_ms_split(first, second, name, reps: int = 5):
+def device_ms_split(first, second, name, reps: int = 5, first_name=None):
     """Device busy ms and events of one ``first()`` and one ``second()``,
     as ``device_ms``, from one profile over ``reps`` calls of
     each: the events whose kernel name holds ``name`` are ``second``'s,
-    the rest ``first``'s."""
+    the rest ``first``'s (with ``first_name``: only those whose name holds
+    it; the calls' other kernels, such as a reduction both launch, are
+    then left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -262,7 +281,9 @@ def device_ms_split(first, second, name, reps: int = 5):
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-        parts = [[e for e in dev if (name in e.key) == mine] for mine in (False, True)]
+        parts = [[e for e in dev if (name in e.key) == mine
+                  and (mine or first_name is None or first_name in e.key)]
+                 for mine in (False, True)]
         if fewest(parts) > fewest(best):
             best = parts
         if fewest(best) >= reps:  # every call launches at least once
@@ -357,6 +378,53 @@ def previous_sweeps(u, cor, rhs, dq, bcs_list, ns, residual=False):
                                           ny, nx, dmask, act, wz, wy, wx, stream))
     cuda_build.check(max(rcs), "previous design")
     return out, r
+
+
+# The defect at odd extents: partial column tiles in y and x, a last z chunk
+# shorter than the others, the smallest extents.
+DF_ODD = ((221, 219, 37), (37, 45, 29), (2, 3, 5))
+
+
+def v2d_levels():
+    """(shape, dq) of every level the v2d kernel smooths on the chi faces
+    of a 220^3 and a 512^3 box (extents >= 3, as mg/engine.py routes
+    them), then (221, 220) and the largest and smallest squares of the
+    one-block route and of a cluster of two (168^2, 169^2, 234^2, 235^2)."""
+    from ndsm_tpu_torch.grids import GridHierarchy
+    from ndsm_tpu_torch.utils.testing import build_test_mesh
+
+    out = []
+    for n in (220, 512):
+        x = build_test_mesh(n)[0]
+        h = GridHierarchy.from_mesh((x, x))
+        out += [(s, h.dq[l]) for l, s in enumerate(h.shapes) if min(s) >= 3]
+    for shape in ((221, 220), (168, 168), (169, 169), (234, 234), (235, 235)):
+        out.append((shape, tuple(1.0 / (n - 1) for n in shape)))
+    return out
+
+
+def _plan_text(p):
+    return (f"{p.route} route, C={p.cluster}, rows {p.rows} a block, smem {p.smem_bytes} B, "
+            f"grid {p.grid}")
+
+
+def compare_kernel_designs(key, label, pts, plain, previous, kern, name, first_name=None,
+                           ns=MS):
+    """A kernel beside its previous design on the same inputs, timed in
+    turns (plain, previous, new, new, previous, plain; CUDA events, min of
+    two medians), then each design's device busy time under torch.profiler
+    (the events whose name holds ``name`` are the new kernel's, those
+    holding ``first_name`` the previous one's), and the share of the
+    bound."""
+    t = [time_ms(f) for f in (plain, previous, kern, kern, previous, plain)]
+    pms, oms, kms = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
+    (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, name, first_name=first_name)
+    bms, by = bound(key, pts, ns)
+    log(f"[design] {key:32s} {label}: previous {oms:.4f} ms, busy {obusy:.4f} ms ({oev:.0f} "
+        f"events); new {kms:.4f} ms, busy {kbusy:.4f} ms ({kev:.0f} events); busy "
+        f"{obusy / kbusy:.2f}x, events {oms / kms:.2f}x faster; plain {pms:.4f} ms; bound "
+        f"{bms:.4f} ms ({by}) = {100 * bms / kbusy:.1f}% of the new busy time, "
+        f"{100 * bms / obusy:.1f}% of the previous; new faster: {kbusy < obusy}")
 
 
 def compare_designs(key, label, shape, nb, plain, previous, kern):
@@ -502,6 +570,25 @@ def phase_kernels(stats: Stats):
             stats.timed("df_residual_3d", lambda: df.df_residual_3d(u64, None, e32, dq, bcs),
                         lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
                         pts, 1, f"{n}^3 {tag} zero-rhs+update", head)
+
+    # -- the defect's four forms at odd extents (partial column tiles, a
+    # last z chunk shorter than the others)
+    for shape in DF_ODD:
+        dq = h.dq[0]
+        u64 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float64, device=dev)
+        rhs64 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float64, device=dev)
+        e32 = 1e-4 * f32(shape)
+        for tag, bcs in BC_SETS.items():
+            for form, r_, e_ in (("zero-rhs", None, None), ("rhs", rhs64, None),
+                                 ("zero-rhs+update", None, e32), ("rhs+update", rhs64, e32)):
+                got = df.df_residual_3d(u64, r_, e_, dq, bcs)
+                want = df.df_residual_3d_plain(u64, r_, e_, dq, bcs)
+                for part, g, w in zip(("r32", "max", "u"), got, want):
+                    stats.note("df_residual_3d", *compare(
+                        f"df_residual_3d {form} ({part}) {shape} {tag}", g, w))
+        log(f"[kernels] {shape}: defect bitwise equal to its plain version (three BC sets, "
+            f"zero-rhs/rhs/update)")
+        del u64, rhs64, e32
 
     # -- the one-lane calls at odd nz and on the small levels: path 1b's
     # 55^3, 27^3, 13^3 and 6^3 levels, the shape class the JAX package sends
@@ -649,7 +736,34 @@ def phase_kernels(stats: Stats):
             f"zc calls {zms:.4f} ms, Az frozen {fms:.4f} ms")
         del u, rhs, cor
 
-    # -- v2d: six lanes of the chi faces of 220^3 and 512^3
+    # -- v2d: every float32 level of the chi faces of 220^3 and 512^3, one
+    # lane and six, (221, 220), the one-block/cluster boundaries and 700^2
+    # (the global route), each shape's plan; timed on six 220^2 and six
+    # 512^2 lanes
+    for shape, dq in v2d_levels() + [((700, 700), (1.0 / 699, 1.0 / 699))]:
+        log(f"[v2d plan] {shape[0]}x{shape[1]}: " + "; ".join(
+            f"{lanes} lane(s): {_plan_text(v2d.v2d_plan(lanes, *shape))}" for lanes in (1, 6)))
+        for tag, bcs in BC_2D.items():
+            for lanes in (1, 6):
+                full = shape if lanes == 1 else (lanes,) + shape
+                u, rhs, cor = f32(full), f32(full), f32(full)
+                lab = f"{'x'.join(map(str, full))} {tag}"
+                for ns in SWEEPS:
+                    stats.note("v2d_smooth", *compare(
+                        f"v2d_smooth {lab} ns={ns}", v2d.v2d_smooth(u, rhs, dq, bcs, ns),
+                        v2d.v2d_smooth_plain(u, rhs, dq, bcs, ns)))
+                    got = v2d.v2d_smooth_residual(u, rhs, dq, bcs, ns)
+                    want = v2d.v2d_smooth_residual_plain(u, rhs, dq, bcs, ns)
+                    for part, g, w in zip(("u", "r"), got, want):
+                        stats.note("v2d_smooth_residual", *compare(
+                            f"v2d_smooth_residual({part}) {lab} ns={ns}", g, w))
+                    stats.note("v2d_smooth_cor", *compare(
+                        f"v2d_smooth_cor {lab} ns={ns}",
+                        v2d.v2d_smooth_cor(u, cor, rhs, dq, bcs, ns),
+                        v2d.v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, ns)))
+        log(f"[kernels] {shape[0]}x{shape[1]}, 1 and 6 lanes: v2d forms bitwise equal to "
+            f"their plain versions (both BC sets, ns in {SWEEPS})")
+        del u, rhs, cor
     for n in (220, 512):
         x = build_test_mesh(n)[0]
         dq = GridHierarchy.from_mesh((x, x)).dq[0]
@@ -657,23 +771,6 @@ def phase_kernels(stats: Stats):
         pts = 6 * n * n
         for tag, bcs in BC_2D.items():
             u, rhs, cor = f32(shape), f32(shape), f32(shape)
-            for ns in SWEEPS:
-                stats.note("v2d_smooth", *compare(
-                    f"v2d_smooth 6x{n}^2 {tag} ns={ns}",
-                    v2d.v2d_smooth(u, rhs, dq, bcs, ns),
-                    v2d.v2d_smooth_plain(u, rhs, dq, bcs, ns)))
-                got_u, got_r = v2d.v2d_smooth_residual(u, rhs, dq, bcs, ns)
-                want_u, want_r = v2d.v2d_smooth_residual_plain(u, rhs, dq, bcs, ns)
-                stats.note("v2d_smooth_residual", *compare(
-                    f"v2d_smooth_residual(u) 6x{n}^2 {tag} ns={ns}", got_u, want_u))
-                stats.note("v2d_smooth_residual", *compare(
-                    f"v2d_smooth_residual(r) 6x{n}^2 {tag} ns={ns}", got_r, want_r))
-                stats.note("v2d_smooth_cor", *compare(
-                    f"v2d_smooth_cor 6x{n}^2 {tag} ns={ns}",
-                    v2d.v2d_smooth_cor(u, cor, rhs, dq, bcs, ns),
-                    v2d.v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, ns)))
-            log(f"[kernels] 6x{n}^2 {tag}: v2d forms bitwise equal to their plain versions "
-                f"(ns in {SWEEPS})")
             head = n == 220 and tag == "all_neumann"
             lab = f"6x{n}^2 {tag} ns={MS}"
             stats.timed("v2d_smooth", lambda: v2d.v2d_smooth(u, rhs, dq, bcs, MS),
@@ -685,6 +782,68 @@ def phase_kernels(stats: Stats):
             stats.timed("v2d_smooth_cor", lambda: v2d.v2d_smooth_cor(u, cor, rhs, dq, bcs, MS),
                         lambda: v2d.v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, MS),
                         pts, MS, lab, head)
+
+    # -- the v2d lane kernel beside the previous design (one block a lane in
+    # global memory, the global route), six lanes of the chi faces' 110^2,
+    # 220^2 and 512^2, all-Neumann, in turns; and the defect's tile beside
+    # one thread a point at 220^3 (zero-rhs + update, the path's form)
+    glob = v2d.V2dPlan("global", 1, 0, 0, 0, (1, 6))
+    for n in (110, 220, 512):
+        x = build_test_mesh(2 * n if n == 110 else n)[0]
+        h2 = GridHierarchy.from_mesh((x, x))
+        dq = h2.dq[h2.shapes.index((n, n))]
+        bcs = BC_2D["all_neumann"]
+        u, rhs, cor = f32((6, n, n)), f32((6, n, n)), f32((6, n, n))
+        lab = f"6x{n}^2 all_neumann ns={MS} ({_plan_text(v2d.v2d_plan(6, n, n))})"
+        for key, args, res in (("v2d_smooth", (u, None, rhs), False),
+                               ("v2d_smooth_residual", (u, None, rhs), True),
+                               ("v2d_smooth_cor", (u, cor, rhs), False)):
+            plain = getattr(v2d, key + "_plain")
+            pargs = args if args[1] is not None else (u, rhs)
+            # the global route is a route of its own (lanes past a 16-block
+            # cluster): held to the plain version too
+            got = v2d._v2d_cuda(*args, dq, bcs, MS, res, key, glob)
+            want = plain(*pargs, dq, bcs, MS)
+            for part, g, w in zip(("u", "r"), got[:2] if res else got[:1],
+                                  want if res else (want,)):
+                stats.note(key, *compare(f"{key}({part}) 6x{n}^2 global route", g, w))
+            compare_kernel_designs(
+                key, lab, 6 * n * n, lambda: plain(*pargs, dq, bcs, MS),
+                lambda: v2d._v2d_cuda(*args, dq, bcs, MS, res, key, glob),
+                lambda: v2d._v2d_cuda(*args, dq, bcs, MS, res, key), "v2d_lane")
+        del u, rhs, cor
+    # -- the plan's cluster size (the fewest blocks that fit) against larger
+    # ones: six all-Neumann lanes, smoothing form, device busy, each bitwise
+    for n in (220, 512):
+        x = build_test_mesh(n)[0]
+        dq = GridHierarchy.from_mesh((x, x)).dq[0]
+        bcs = BC_2D["all_neumann"]
+        u, rhs = f32((6, n, n)), f32((6, n, n))
+        want = v2d.v2d_smooth_plain(u, rhs, dq, bcs, MS)
+        fewest = v2d.v2d_plan(6, n, n).cluster
+        cells = []
+        for c in sorted({fewest, fewest + 1, fewest + 2, min(16, 2 * fewest), 16}):
+            p = v2d.v2d_plan(6, n, n, cluster=c)
+            run = lambda p=p: v2d._v2d_cuda(u, None, rhs, dq, bcs, MS, False, "v2d_smooth",  # noqa: E731
+                                            p)[0]
+            compare(f"v2d_smooth 6x{n}^2 C={c}", run(), want)
+            cells.append(f"C={c}{' (plan)' if c == fewest else ''} {device_ms(run)[0]:.4f} ms")
+        log(f"[v2d C] 6x{n}^2 all_neumann ns={MS} smoothing, device busy: " + "; ".join(cells))
+        del u, rhs, want
+
+    shape, dq, bcs = h.shapes[0], h.dq[0], BC_SETS["Ax"]
+    zz, yy, xx = np.meshgrid(*h.meshes[0], indexing="ij")
+    u64 = torch.as_tensor(np.sin(2.1 * zz + 0.3) * np.cos(1.7 * yy) * np.sin(2.9 * xx + 1.1),
+                          dtype=torch.float64, device=dev)
+    del zz, yy, xx
+    e32 = 1e-4 * f32(shape)
+    compare_kernel_designs(
+        "df_residual_3d", "220^3 Ax zero-rhs+update (the kernels alone, not the wrapper's max)",
+        int(np.prod(shape)), lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
+        lambda: df._defect_cuda(u64, None, e32, dq, bcs, previous=True),
+        lambda: df._defect_cuda(u64, None, e32, dq, bcs), "defect_tile",
+        first_name="defect_point", ns=1)
+    del u64, e32
 
     # -- the all-Neumann 3D smoother (path 2's levels)
     for n in (220, 256):
@@ -914,6 +1073,23 @@ DENSE_3D = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d",
             "fused_smooth_cor_3d_batched")
 
 
+def check_v2d_routes(what, launches, routes, info):
+    """The chi faces' v2d calls of a warm call: one launch a call, each
+    form once a float32 level (5 at 220^2) and V-cycle of the lane-batched
+    solve, on the one-block and cluster routes, never the global one."""
+    cycles = max(s.cycles for s in info.chi)
+    forms = {k: launches[k] for k in ("v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")}
+    log(f"[{what}] v2d launches {forms} (5 float32 levels x {cycles} V-cycles = "
+        f"{5 * cycles}); by route {routes}")
+    if any(v != 5 * cycles for v in forms.values()) or sum(routes.values()) != sum(
+            forms.values()):
+        raise AssertionError(f"{what}: v2d launches {forms} / routes {routes}, expected "
+                             f"{5 * cycles} of each form, one launch a call")
+    if routes["global"] or not routes["cluster"] or not routes["block"]:
+        raise AssertionError(f"{what}: v2d routes {routes}: expected the one-block and the "
+                             "cluster route only")
+
+
 def log_passes(what, launches, passes, keys):
     """The 3D red-black kernel launches of a warm call: the wrapper calls,
     the pass launches behind them, and what the previous design launched
@@ -996,6 +1172,7 @@ def phase_main_path():
     launches = ops.launch_counts()
     check_counts("main 220^3 warm", launches, ops.plain_cuda_counts(), PATH1)
     log_passes("path 1", launches, ops.pass_launches(), PATH1[:3])
+    check_v2d_routes("path 1", launches, ops.v2d_route_launches(), info)
     log(f"[main] 220^3 warm: chi phase {info.phases['chi']:.4f} s; solve3d "
         f"{info.phases['solve3d']:.4f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")

@@ -1,9 +1,10 @@
-// Mixed-precision outer defect, float64: the Hopper kernel behind ops/df.py.
+// Mixed-precision outer defect, float64: the Hopper kernels behind ops/df.py
+// and ops/df_sharded.py.
 //
 // Replaces ndsm_tpu/ops/pallas_df.py: df_residual_3d (with its zero_rhs
 // and update variants).  On the TPU, f64 was software-emulated, so that
 // kernel carried u as an f32 (hi, lo) pair with compensated arithmetic.
-// Hopper has native f64, so this kernel computes in f64 directly:
+// Hopper has native f64, so these kernels compute in f64 directly:
 //
 //   v = u (+ (double)e)                     update variant: v is written out
 //   r = rhs - L[v]                          rhs == nullptr: the zero-rhs form
@@ -13,16 +14,28 @@
 // L[v] is ndsm_tpu/ops/stencils.py's poisson_residual order in f64 with
 // w = 1/(dq*dq) in f64: per axis ((lo - 2v) + hi) * w, summed z, y, x.
 //
-// The update writes v to a separate buffer (u_out): neighbours are read as
-// u[q] + e[q] from the unmodified u, so no thread can see a neighbour that
-// another thread already updated.
+// defect_tile_f64, the z-marching tile (the kernel of df_residual_3d): a
+// block owns a (kTileY, kTileX) column tile and marches z over a chunk of
+// planes.  Each point's v is formed once a block: into registers for the
+// thread's own points (the planes below, at and above, rotated as the
+// march goes), and into a shared-memory plane with a one-point y/x halo
+// (Neumann reflection applied when the halo is loaded), from which the y
+// and x neighbours are read.  The next plane's loads are issued before
+// the current plane's barrier, the plane is double-buffered (one barrier
+// a step), and u_out and r32 are written coalesced.  The chunks are chosen
+// so that every block of the launch is resident at once (one wave), and
+// each block writes one maximum.
 //
 // What bounds it on the H100: device-memory bandwidth -- 8 (u) + 8 (rhs)
 // + 4 (r32) bytes per point, plus 4 (e) + 8 (u_out) for the update; the
-// zero-rhs update form the vector-potential solves use moves 24 B/point.
-// f64 arithmetic (~190 FLOP/point in the TPU's pair form, ~20 here) is far
-// below the H100's f64 rate.  The design streams each array once; the
-// neighbour reads hit L1/L2.
+// zero-rhs update form the vector-potential solves use moves 24 B/point,
+// plus the re-read of the tile's halo (1/8 of u and e at 32 x 16) and of a
+// chunk's two end planes.  f64 arithmetic (~20 operations a point) is far
+// below the H100's f64 rate.
+//
+// defect_point_f64 is the previous design, one thread a point that
+// reads its six neighbours as u[q] + e[q] through L1; it stays as the
+// yardstick chip_smoke.py times beside the tile.
 //
 // defect_sharded_f64 is the same defect on one shard of a level partitioned
 // in z, or in z and y (replaces ndsm_tpu/ops/pallas_df.py:
@@ -63,7 +76,7 @@ __device__ __forceinline__ void write_block_max(float a, float* block_max) {
   }
 }
 
-__global__ void defect_f64(const double* __restrict__ u,
+__global__ void defect_point_f64(const double* __restrict__ u,
                            const float* __restrict__ e,
                            double* __restrict__ u_out,
                            const double* __restrict__ rhs,
@@ -91,6 +104,142 @@ __global__ void defect_f64(const double* __restrict__ u,
     }
     r32[p] = rv;
     a = fabsf(rv);
+  }
+  write_block_max(a, block_max);
+}
+
+// ---- the z-marching tile
+
+constexpr int kTileX = 32, kTileY = 16;
+constexpr int kTileRows = kTileY / (kThreads / kTileX);  // own points a thread a plane
+constexpr int kHaloPoints = 2 * (kTileX + kTileY);       // the plane's y and x halo
+
+// Tiles and z chunks of a level: the chunks fill the card's resident blocks
+// (one wave), as a block's z chunk of cz planes.
+struct TileGrid {
+  int tiles_x, tiles_y, cz, blocks;
+};
+
+__global__ void __launch_bounds__(kThreads)
+defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
+                double* __restrict__ u_out, const double* __restrict__ rhs,
+                float* __restrict__ r32, float* __restrict__ block_max, int nz, int ny,
+                int nx, int dmask, double wz, double wy, double wx, int tiles_x,
+                int tiles_y, int cz) {
+  // v of the current plane over the tile and its halo, double-buffered
+  __shared__ double plane[2][kTileY + 2][kTileX + 2];
+  const int tiles = tiles_x * tiles_y;
+  const int tile = blockIdx.x % tiles, chunk = blockIdx.x / tiles;
+  const int x0 = (tile % tiles_x) * kTileX, y0 = (tile / tiles_x) * kTileY;
+  const int ex = min(kTileX, nx - x0), ey = min(kTileY, ny - y0);
+  const int z0 = chunk * cz, z1 = min(nz, z0 + cz);
+  const int lx = threadIdx.x % kTileX, ly = threadIdx.x / kTileX;
+  const long long sz = (long long)ny * nx;
+  auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
+
+  // own points: (y0 + ly + 8j, x0 + lx), j < kTileRows
+  const int x = x0 + lx;
+  bool own[kTileRows];
+  long long at[kTileRows];  // offset of the point in plane 0
+#pragma unroll
+  for (int j = 0; j < kTileRows; ++j) {
+    const int y = y0 + ly + j * (kThreads / kTileX);
+    own[j] = lx < ex && ly + j * (kThreads / kTileX) < ey;
+    at[j] = (long long)y * nx + x;
+  }
+  // this thread's halo point (threads < kHaloPoints): the rows below and
+  // above the tile, then the columns left and right of it, reflected at the
+  // domain's faces; (hy, hx) is its slot in the plane
+  const int t = threadIdx.x;
+  bool halo = false;
+  long long hat = 0;
+  int hy = 0, hx = 0;
+  if (t < 2 * kTileX) {
+    const int i = t % kTileX, up = t / kTileX;
+    halo = i < ex;
+    const int y = up ? (y0 + ey < ny ? y0 + ey : ny - 2) : (y0 > 0 ? y0 - 1 : 1);
+    hat = (long long)y * nx + x0 + i;
+    hy = up ? ey + 1 : 0;
+    hx = i + 1;
+  } else if (t < kHaloPoints) {
+    const int i = (t - 2 * kTileX) % kTileY, right = (t - 2 * kTileX) / kTileY;
+    halo = i < ey;
+    const int xx = right ? (x0 + ex < nx ? x0 + ex : nx - 2) : (x0 > 0 ? x0 - 1 : 1);
+    hat = (long long)(y0 + i) * nx + xx;
+    hy = i + 1;
+    hx = right ? ex + 1 : 0;
+  }
+
+  // the march: registers hold v below (vp), at (vc) and above (vn) plane z
+  double vp[kTileRows], vc[kTileRows], vn[kTileRows], rh[kTileRows];
+  double hv = 0.0;
+#pragma unroll
+  for (int j = 0; j < kTileRows; ++j) {
+    vp[j] = vc[j] = vn[j] = rh[j] = 0.0;
+    if (!own[j]) continue;
+    vp[j] = v(reflect_lo(z0) * sz + at[j]);
+    vc[j] = v(z0 * sz + at[j]);
+    vn[j] = v(reflect_hi(z0, nz) * sz + at[j]);
+    if (rhs) rh[j] = rhs[z0 * sz + at[j]];
+  }
+  if (halo) hv = v(z0 * sz + hat);
+
+  float a = 0.0f;
+  for (int z = z0; z < z1; ++z) {
+    double(*pl)[kTileX + 2] = plane[(z - z0) & 1];
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j)
+      if (own[j]) pl[ly + 1 + j * (kThreads / kTileX)][lx + 1] = vc[j];
+    if (halo) pl[hy][hx] = hv;
+    // the next plane's loads, in flight across the barrier and the update
+    const bool next = z + 1 < z1;
+    double nu[kTileRows], nr[kTileRows];
+    float ne[kTileRows];
+    double nhu = 0.0;
+    float nhe = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j) {
+      nu[j] = nr[j] = 0.0;
+      ne[j] = 0.0f;
+      if (!next || !own[j]) continue;
+      const long long q = reflect_hi(z + 1, nz) * sz + at[j];
+      nu[j] = u[q];
+      if (e) ne[j] = e[q];
+      if (rhs) nr[j] = rhs[(z + 1) * sz + at[j]];
+    }
+    if (next && halo) {
+      nhu = u[(z + 1) * sz + hat];
+      if (e) nhe = e[(z + 1) * sz + hat];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j) {
+      if (!own[j]) continue;
+      const int py = ly + 1 + j * (kThreads / kTileX), px = lx + 1;
+      const int y = y0 + py - 1;
+      const long long p = z * sz + at[j];
+      if (u_out) u_out[p] = vc[j];
+      float rv = 0.0f;
+      if (!on_dirichlet_face(z, y, x, nz, ny, nx, dmask)) {
+        const double c2 = 2.0 * vc[j];
+        double s = ((vp[j] - c2) + vn[j]) * wz;
+        s = s + ((pl[py - 1][px] - c2) + pl[py + 1][px]) * wy;
+        s = s + ((pl[py][px - 1] - c2) + pl[py][px + 1]) * wx;
+        rv = (float)(rh[j] - s);
+      }
+      r32[p] = rv;
+      a = nan_max(a, fabsf(rv));
+    }
+    if (next) {
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) {
+        vp[j] = vc[j];
+        vc[j] = vn[j];
+        vn[j] = e ? nu[j] + (double)ne[j] : nu[j];
+        rh[j] = nr[j];
+      }
+      hv = e ? nhu + (double)nhe : nhu;
+    }
   }
   write_block_max(a, block_max);
 }
@@ -135,17 +284,65 @@ __global__ void defect_sharded_f64(const double* __restrict__ u,
 
 }  // namespace ndsm
 
+namespace ndsm {
+
+// The tile kernel's grid: z chunks so that tiles * chunks blocks are all
+// resident at once (the card's SMs times the blocks an SM holds), each at
+// least one plane.
+inline TileGrid tile_grid(int nz, int ny, int nx) {
+  static int dev_seen = -1, slots = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != dev_seen) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, defect_tile_f64, kThreads, 0);
+    slots = sms * per_sm;
+    dev_seen = dev;
+  }
+  TileGrid g;
+  g.tiles_x = (nx + kTileX - 1) / kTileX;
+  g.tiles_y = (ny + kTileY - 1) / kTileY;
+  const int tiles = g.tiles_x * g.tiles_y;
+  int chunks = slots / tiles;
+  chunks = chunks < 1 ? 1 : (chunks > nz ? nz : chunks);
+  g.cz = (nz + chunks - 1) / chunks;
+  g.blocks = tiles * ((nz + g.cz - 1) / g.cz);
+  return g;
+}
+
+}  // namespace ndsm
+
+// Block maxima the sharded kernel writes (one per kThreads points).
 extern "C" int ndsm_defect_blocks(int nz, int ny, int nx) {
   return (int)ndsm::blocks_for((long long)nz * ny * nx);
+}
+
+// Block maxima the tile kernel writes.
+extern "C" int ndsm_defect_tile_blocks(int nz, int ny, int nx) {
+  return ndsm::tile_grid(nz, ny, nx).blocks;
 }
 
 extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
                                const void* rhs, void* r32, void* block_max,
                                int nz, int ny, int nx, int dmask, double wz,
                                double wy, double wx, void* stream) {
+  const ndsm::TileGrid g = ndsm::tile_grid(nz, ny, nx);
+  ndsm::defect_tile_f64<<<g.blocks, ndsm::kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
+      (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx, g.tiles_x,
+      g.tiles_y, g.cz);
+  return (int)cudaGetLastError();
+}
+
+// The previous design, one thread a point (ndsm_defect_blocks maxima).
+extern "C" int ndsm_defect_point_f64(const void* u, const void* e, void* u_out,
+                                     const void* rhs, void* r32, void* block_max,
+                                     int nz, int ny, int nx, int dmask, double wz,
+                                     double wy, double wx, void* stream) {
   const long long n = (long long)nz * ny * nx;
-  ndsm::defect_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
-                     (cudaStream_t)stream>>>(
+  ndsm::defect_point_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
+                           (cudaStream_t)stream>>>(
       (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
       (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx);
   return (int)cudaGetLastError();

@@ -5,6 +5,7 @@ version, the TPU kernel it replaces and its CUDA source;
 ``launch_counts``/``reset_launch_counts`` read and zero their launch
 counters (wrapper calls that launched), ``pass_launches`` the launches of
 the 3D red-black pass kernel behind them (``zc.sweeps_cuda.passes``),
+``v2d_route_launches`` the v2d launches of each route (``v2d.v2d_plan``),
 ``plain_cuda_counts`` the number of times a plain version ran on a CUDA
 tensor.
 """
@@ -108,6 +109,10 @@ def pass_launches() -> int:
     return zc.sweeps_cuda.passes
 
 
+def v2d_route_launches() -> dict:
+    return dict(v2d.ROUTE_LAUNCHES)
+
+
 def plain_cuda_counts() -> dict:
     return {k[2].__name__: k[2].plain_cuda_calls for k in KERNELS}
 
@@ -117,6 +122,8 @@ def reset_launch_counts() -> None:
         k[1].launches = 0
         k[2].plain_cuda_calls = 0
     zc.sweeps_cuda.passes = 0
+    for route in v2d.ROUTE_LAUNCHES:
+        v2d.ROUTE_LAUNCHES[route] = 0
 
 
 __all__ = [
@@ -137,6 +144,7 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "pass_launches",
+    "v2d_route_launches",
     "plain_cuda_counts",
     "reset_launch_counts",
 ]

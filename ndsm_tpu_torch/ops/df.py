@@ -16,8 +16,9 @@ of a stack) r32 is written there and returned, instead of a new tensor.
 
 Float64 throughout: the TPU kernel carried u as an f32 (hi, lo) pair only
 because f64 was emulated there; Hopper has it natively.  On a CUDA tensor
-the wrapper launches ``csrc/defect.cu`` (one launch; per-block maxima
-reduced here) and adds one to ``launches``, or raises.  On a CPU tensor it
+the wrapper launches the z-marching tile of ``csrc/defect.cu`` (one
+launch; one maximum per block, reduced here) and adds one to
+``launches``, or raises.  On a CPU tensor it
 runs the plain version, built from ``stencils.poisson_residual`` in f64 —
 the same expression order as the kernel, so the two agree bit for bit.
 The wrapper never modifies its inputs: the updated iterate is a new tensor.
@@ -69,6 +70,14 @@ def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
     if u.device.type == "cpu":
         return df_residual_3d_plain(u, rhs, e, dq, bcs, r32_out)
 
+    r32, mx, u_new = _defect_cuda(u, rhs, e, dq, bcs, r32_out)
+    df_residual_3d.launches += 1
+    return r32, mx, u_new
+
+
+def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None, previous: bool = False):
+    """One launch of the tile kernel, or (``previous``) of the previous
+    design, one thread a point (chip_smoke.py times the two in turns)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -77,12 +86,12 @@ def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
     r32 = torch.empty(u.shape, dtype=torch.float32, device=u.device) if r32_out is None \
         else r32_out
     u_new = torch.empty_like(u) if e is not None else u
-    block_max = torch.empty(
-        lib.ndsm_defect_blocks(nz, ny, nx), dtype=torch.float32, device=u.device
-    )
+    launch, blocks = ((lib.ndsm_defect_point_f64, lib.ndsm_defect_blocks) if previous
+                      else (lib.ndsm_defect_f64, lib.ndsm_defect_tile_blocks))
     with torch.cuda.device(u.device):
+        block_max = torch.empty(blocks(nz, ny, nx), dtype=torch.float32, device=u.device)
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.ndsm_defect_f64(
+        rc = launch(
             u.data_ptr(),
             None if e is None else e.data_ptr(),
             None if e is None else u_new.data_ptr(),
@@ -91,7 +100,6 @@ def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
             dirichlet_mask(bcs), wz, wy, wx, stream,
         )
         cuda_build.check(rc, "df_residual_3d")
-    df_residual_3d.launches += 1
     return r32, torch.max(block_max), u_new
 
 

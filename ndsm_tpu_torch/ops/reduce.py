@@ -11,8 +11,11 @@ import torch
 __all__ = ["du_metrics", "trapz_2d", "trapz_weights_1d", "SUM_THREADS",
            "strided_block_sum"]
 
-#: Threads per block of the CUDA sum reductions (csrc/v2d_smooth.cu,
-#: csrc/zc_smooth.cu); the plain version below follows their order.
+#: Slots of the CUDA sums' fixed order: the threads of a 1024-thread
+#: block (csrc/zc_smooth.cu, the global route of csrc/v2d_smooth.cu), or
+#: slots t and t + 512 of a 512-thread block, chained through the blocks
+#: of a cluster in rank order (v2d_smooth.cu's lane kernel); the plain
+#: version below follows that order.
 SUM_THREADS = 1024
 
 

@@ -51,8 +51,11 @@ _SIGNATURES = {
     "ndsm_sub_scalar_f32": (_P, _P, _L, _P),
     "ndsm_v2d_smooth_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P),
+    "ndsm_v2d_lane_f32": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _F, _F, _P),
     "ndsm_defect_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
+    "ndsm_defect_point_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
     "ndsm_defect_blocks": (_I, _I, _I),
+    "ndsm_defect_tile_blocks": (_I, _I, _I),
     "ndsm_lane_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I,
                                    _F, _F, _F, _F, _P),
     "ndsm_lane_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,

@@ -137,12 +137,15 @@ def test_zero_rhs_equals_zero_tensor_and_inputs_untouched():
 def test_cuda_defect_bitwise_plain(bcs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # a cube, then odd extents that leave partial column tiles and z chunks
     u, dq = _case(19, seed=5)
     rng = np.random.default_rng(9)
-    ut = torch.as_tensor(u).cuda()
-    rhs = torch.as_tensor(rng.standard_normal(u.shape)).cuda()
-    e = torch.as_tensor(1e-5 * rng.standard_normal(u.shape), dtype=torch.float32).cuda()
-    for r_, e_ in ((None, None), (rhs, None), (None, e), (rhs, e)):
-        for a, b in zip(df.df_residual_3d(ut, r_, e_, dq, bcs),
-                        df.df_residual_3d_plain(ut, r_, e_, dq, bcs)):
-            assert torch.equal(a, b)
+    for u in (u, rng.standard_normal((37, 45, 29)), rng.standard_normal((2, 3, 5)),
+              rng.standard_normal((221, 50, 33))):
+        ut = torch.as_tensor(u).cuda()
+        rhs = torch.as_tensor(rng.standard_normal(u.shape)).cuda()
+        e = torch.as_tensor(1e-5 * rng.standard_normal(u.shape), dtype=torch.float32).cuda()
+        for r_, e_ in ((None, None), (rhs, None), (None, e), (rhs, e)):
+            for a, b in zip(df.df_residual_3d(ut, r_, e_, dq, bcs),
+                            df.df_residual_3d_plain(ut, r_, e_, dq, bcs)):
+                assert torch.equal(a, b)

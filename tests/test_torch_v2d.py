@@ -245,10 +245,13 @@ def test_vector_potential_22_matches_jax_with_2d_kernel(kernel_env):
 @pytest.mark.parametrize("bcs", [ALL_N, MIXED], ids=["all_neumann", "mixed_bc"])
 def test_cuda_kernel_bitwise_plain(bcs):
     """On the card: the kernel equals its plain version bitwise, one lane
-    and six."""
+    and six: one block a lane, a cluster of blocks a lane (220^2, 512^2,
+    odd extents, the one-block/cluster boundary at 168^2/169^2) and the
+    global route of lanes past a 16-block cluster."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for shape in ((37, 45), (6, 37, 45)):
+    for shape in ((37, 45), (6, 37, 45), (220, 220), (6, 220, 220), (3, 221, 219),
+                  (168, 168), (169, 169), (2, 512, 512), (33, 1001), (700, 700)):
         u, r, c = (_t(a).cuda() for a in _data(shape, 5))
         for ns in (1, 2, 5):
             assert torch.equal(v2d.v2d_smooth(u, r, DQ, bcs, ns),
