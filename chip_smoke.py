@@ -46,7 +46,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          against larger ones at six 220^2 and 512^2 lanes ("[v2d C]");
        - the defect's z-marching tile against the previous design (one
          thread a point) in turns at 220^3, zero-rhs + update ("[design]");
-       - the all-Neumann 3D smoother at 220^3 and 256^3;
+       - the all-Neumann 3D smoother (one launch a call: a cooperative
+         grid, or one block for a level that fits its shared memory), each
+         shape's plan printed ("[mean plan]"), bitwise at every level of
+         the 128^3 and 256^3 hierarchies, 220^3, 33^3 and 65x64x63, ns 1, 2
+         and 5, on the plan's route and on the grid route where the plan
+         takes the block route; timed at 220^3, 128^3, 256^3 and 16^3 with
+         each call's host enqueue and device events (more than one device
+         event a call fails the phase), and against the previous
+         design (4 ns + 1 launches) in turns at 256^3, 128^3, 32^3 and 16^3
+         ("[design]");
        - the colour-split smoother (compact_smooth_3d) with its split and
          merge passes at 220^3, 110^3, 55^3 and 221x220x221 (odd nx), three
          component BC sets: halves against the plain version (ghosts
@@ -88,17 +97,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      Ax and Az BCs (Dirichlet and Neumann z faces); 220^3 over 2 x 2
      (110 x 110) and 4 x 2 (55 x 110) and 256^3 over 4 x 2 (64 x 128) on a
      (z, y) mesh, Ax, Az and Ay BCs (Neumann y faces too): each kernel (ns
-     1, 2, 5, with and without the residual; the defect in its four forms)
-     against its plain version on a corner, an inner and the last shard,
+     1, 2, 5, with and without the residual, on every shard; the defect in
+     its four forms on a corner, an inner and the last shard) against its
+     plain version,
      the stitched shards against the unsharded zc_smooth_3d /
      zc_smooth_residual_3d / df_residual_3d of the whole level, and the
      engine's passes of width 2 (width 1 on 256^3's 4-plane blocks) with
      their exchanges against the unsharded 5-sweep kernels; all bitwise.
-     Timed at the level 0 of paths 4 and 4b (shard 0 with its halo).
+     B10/B10y are one launch a call of the pass's shard form ("[shard
+     plan]": its tile, window and grid at level 0; more than one device
+     event a call fails the phase).  Timed at the level 0
+     of paths 4 and 4b (shard 0 with its halo), and against the previous
+     design (2 ns half-sweep launches + 1 residual launch, also held
+     bitwise to the pass) in turns ("[design]").
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
-     error against the exact solution falls as h^2 (ratio 3.5-4.5).
+     error against the exact solution falls as h^2 (ratio 3.5-4.5); one
+     more warm solve of each under torch.profiler: its device events, busy
+     time, idle share and the all-Neumann kernel's launches.
      Path 4: ``vector_potential(..., dist=DistConfig(make_mesh(2,
      devices=["cuda:0"] * 2)))`` and path 4b: ``dist=DistConfig(
      make_mesh_nd((2, 2), devices=["cuda:0"] * 4), ("z", "y"))``, each at
@@ -345,6 +362,8 @@ class Stats:
             log(f"[time] {key:22s} {label}: host enqueue {hms:.4f} ms, device busy "
                 f"{dms:.4f} ms in {nev:.0f} device events (the bound is "
                 f"{100 * bms / dms:.1f}% of it)")
+            return nev
+        return None
 
 
 def previous_sweeps(u, cor, rhs, dq, bcs_list, ns, residual=False):
@@ -409,19 +428,21 @@ def _plan_text(p):
 
 
 def compare_kernel_designs(key, label, pts, plain, previous, kern, name, first_name=None,
-                           ns=MS):
+                           ns=MS, work=None):
     """A kernel beside its previous design on the same inputs, timed in
     turns (plain, previous, new, new, previous, plain; CUDA events, min of
     two medians), then each design's device busy time under torch.profiler
     (the events whose name holds ``name`` are the new kernel's, those
-    holding ``first_name`` the previous one's), and the share of the
-    bound."""
+    holding ``first_name`` the previous one's), the host's enqueue time of
+    a call of each, and the share of the bound (``work`` as in ``bound``)."""
     t = [time_ms(f) for f in (plain, previous, kern, kern, previous, plain)]
     pms, oms, kms = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
     (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, name, first_name=first_name)
-    bms, by = bound(key, pts, ns)
+    bms, by = bound(key, pts, ns, work)
+    ohost, khost = enqueue_ms(previous), enqueue_ms(kern)
     log(f"[design] {key:32s} {label}: previous {oms:.4f} ms, busy {obusy:.4f} ms ({oev:.0f} "
-        f"events); new {kms:.4f} ms, busy {kbusy:.4f} ms ({kev:.0f} events); busy "
+        f"events, host enqueue {ohost:.4f} ms a call); new {kms:.4f} ms, busy {kbusy:.4f} ms "
+        f"({kev:.0f} events, host enqueue {khost:.4f} ms); busy "
         f"{obusy / kbusy:.2f}x, events {oms / kms:.2f}x faster; plain {pms:.4f} ms; bound "
         f"{bms:.4f} ms ({by}) = {100 * bms / kbusy:.1f}% of the new busy time, "
         f"{100 * bms / obusy:.1f}% of the previous; new faster: {kbusy < obusy}")
@@ -492,8 +513,9 @@ def phase_device():
             what = line.split(':', 1)[-1].strip()
             log(f"[build] {entry[:60]}: {what}")
             if "lane_pass" in entry:  # the multi-sweep pass (32- and 64-bit indexing)
-                bits = 64 if "IyE" in entry else 32
-                log(f"[pass] ptxas, lane_pass ({bits}-bit lane indices): {what}")
+                bits = 64 if "lane_passIy" in entry else 32
+                form = "shard form" if "Lb1E" in entry else "lane form"
+                log(f"[pass] ptxas, lane_pass {form} ({bits}-bit lane indices): {what}")
             entry = entry if "stack frame" in line else None
     return name, smi
 
@@ -845,24 +867,7 @@ def phase_kernels(stats: Stats):
         first_name="defect_point", ns=1)
     del u64, e32
 
-    # -- the all-Neumann 3D smoother (path 2's levels)
-    for n in (220, 256):
-        x = np.linspace(0.0, 1.0, n)
-        dq = GridHierarchy.from_mesh((x, x, x)).dq[0]
-        shape = (n, n, n)
-        u, rhs = f32(shape), f32(shape)
-        for ns in SWEEPS:
-            stats.note("zc_smooth_mean_3d", *compare(
-                f"zc_smooth_mean_3d {n}^3 ns={ns}",
-                zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, ns),
-                zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, ns)))
-        log(f"[kernels] {n}^3 all-Neumann: zc_smooth_mean_3d bitwise equal to its plain "
-            f"version (ns in {SWEEPS})")
-        stats.timed("zc_smooth_mean_3d",
-                    lambda: zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, MS),
-                    lambda: zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, MS),
-                    n**3, MS, f"{n}^3 ns={MS}", n == 256)
-        del u, rhs
+    phase_mean_kernels(stats, f32)
 
     log("[kernels] max difference from the plain version, in ulps of max|plain|: "
         + ", ".join(f"{k} {v['ulp']:.1f}" for k, v in stats.s.items()))
@@ -873,6 +878,78 @@ def phase_kernels(stats: Stats):
     log(f"[time] device-to-device copy of 512 MiB: {cms:.4f} ms = "
         f"{2 * big.numel() * 4 / cms / 1e6:.1f} GB/s (read + write)")
     del big, dst
+
+
+# Odd all-Neumann shapes beside path 2's levels: a grid of 36 blocks, and
+# 65 x 64 x 63 (N not a multiple of 1024, more than 256 * 1024 points)
+MEAN_ODD = ((33, 33, 33), (65, 64, 63))
+
+
+def phase_mean_kernels(stats: Stats, f32):
+    """B6, the all-Neumann smoother (one launch a call): each shape's plan
+    ("[mean plan]": route, virtual blocks, the grid's blocks); bitwise
+    against its plain version at every level of the 128^3 and 256^3
+    hierarchies (path 2), at 220^3 and at MEAN_ODD, ns 1, 2 and 5, on the
+    plan's route and, where that is the block route, on the grid route
+    too; timed at 220^3, 128^3, 256^3 (the kernel row) and 16^3, with each
+    call's host enqueue and device events (more than one a call fails);
+    against the previous design (4 ns + 1
+    launches a call) in turns at 256^3, 128^3, 32^3 and 16^3
+    ("[design]")."""
+    import numpy as np
+
+    from ndsm_tpu_torch.grids import GridHierarchy
+    from ndsm_tpu_torch.ops import zc
+    from ndsm_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.kernels()
+    shapes = {}
+    for n in (128, 256):
+        x = np.linspace(0.0, 1.0, n)
+        h = GridHierarchy.from_mesh((x, x, x))
+        for s_, dq in zip(h.shapes, h.dq):
+            shapes.setdefault(tuple(s_), dq)
+    for s_ in ((220, 220, 220),) + MEAN_ODD:
+        shapes.setdefault(s_, tuple(1.0 / (e - 1) for e in s_))
+    data = {}
+    for shape, dq in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0])):
+        plan = zc.mean_plan(shape)
+        resident = lib.ndsm_mean_resident_blocks(*shape)
+        lab = "x".join(map(str, shape))
+        log(f"[mean plan] {lab}: {plan.route} route, {plan.vblocks} virtual blocks, "
+            + (f"a cooperative grid of {min(resident, plan.vblocks)} blocks ({resident} "
+               "resident on the card)" if plan.route == "grid" else
+               f"one block, {plan.smem_bytes} B of shared memory"))
+        if resident <= 0:
+            raise AssertionError(f"the card runs no cooperative grid of mean_grid ({resident})")
+        u, rhs = f32(shape), f32(shape)
+        routes = [plan] + ([zc.MeanPlan("grid", plan.vblocks, 0)] if plan.route == "block" else [])
+        for ns in SWEEPS:
+            want = zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, ns)
+            for i, p in enumerate(routes):
+                got = (zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, ns) if i == 0 else
+                       zc._mean_sweeps_cuda(u, rhs, dq, ALL_N_3D, ns, plan=p))
+                stats.note("zc_smooth_mean_3d", *compare(
+                    f"zc_smooth_mean_3d {lab} ns={ns} ({p.route} route)", got, want))
+        log(f"[kernels] {lab} all-Neumann: zc_smooth_mean_3d bitwise equal to its plain version "
+            f"on the {' and '.join(p.route for p in routes)} route (ns in {SWEEPS})")
+        data[shape] = (u, rhs, dq)
+    for n in (220, 128, 256, 16):
+        u, rhs, dq = data[(n, n, n)]
+        nev = stats.timed("zc_smooth_mean_3d",
+                          lambda: zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, MS),
+                          lambda: zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, MS),
+                          n**3, MS, f"{n}^3 ns={MS}", n == 256, busy=True)
+        if nev > 1:
+            raise AssertionError(f"zc_smooth_mean_3d {n}^3: {nev} device events a call, not 1")
+    for n in (256, 128, 32, 16):
+        u, rhs, dq = data[(n, n, n)]
+        compare_kernel_designs(
+            "zc_smooth_mean_3d", f"{n}^3 ns={MS} ({zc.mean_plan(u.shape).route} route)", n**3,
+            lambda: zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, MS),
+            lambda: zc._mean_sweeps_cuda(u, rhs, dq, ALL_N_3D, MS, previous=True),
+            lambda: zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, MS), "mean_")
+    del data
 
 
 def phase_compact_kernels(stats: Stats):
@@ -1294,6 +1371,33 @@ def phase_main_path():
     return launches, launches_b, counted["3"], counted["3b"], (A_off, info_b)
 
 
+def profile_solve(label, solve, calls, name):
+    """One more warm solve under torch.profiler: its device events, device
+    busy time against the wall, and the launches of the kernels whose name
+    holds ``name`` against the wrapper's ``calls`` of the counted run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    events = sum(e.count for e in dev)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    mine = {e.key: e.count for e in dev if name in e.key}
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"{label} profiled warm solve: {events} device events, busy {busy:.4f} s of "
+        f"{wall:.4f} s (idle share {1 - busy / wall:.3f}); {sum(mine.values())} launches of "
+        f"the '{name}' kernels for {calls} wrapper calls ({mine}); most device time: "
+        + ", ".join(f"{e.key[:40]} {e.count}x {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in top))
+
+
 def phase_neumann_3d():
     """Path 2: the 3D all-Neumann mixed solve on an analytic case."""
     import numpy as np
@@ -1328,6 +1432,8 @@ def phase_neumann_3d():
             f"max|u - exact| {errs[n]:.5e} (both mean-free)")
         check_counts(f"neumann3d {n}^3", counts, plain, PATH2)
         launches = counts
+        profile_solve(f"[neumann3d] {n}^3 mixed", lambda: bvp.solve(np.zeros_like(rhs), rhs),
+                      counts["zc_smooth_mean_3d"], "mean_")
     ratio = errs[128] / errs[256]
     log(f"[neumann3d] error ratio 128^3 / 256^3 = {ratio:.3f} (h^2 predicts "
         f"{(255 / 127) ** 2:.3f}; required 3.5-4.5)")
@@ -1449,6 +1555,14 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
         cut = Cut(n, grid, dev)
         shape, dq = h.shapes[0], h.dq[0]
         where = cut.where
+        for ns, res in ((2, False), (1, True)):  # the engine's passes at level 0
+            H = 2 * ns + res
+            halos = (H, H if cut.zy else 0)
+            ext = tuple(l + 2 * hh for l, hh in zip(cut.local, halos)) + shape[len(grid):]
+            p = zc.shard_pass_plan(ext[:3], halos, ns, res)
+            log(f"[shard plan] {where}, block {'x'.join(map(str, ext[:3]))} (+{H} halo), ns={ns}"
+                f"{' + residual' if res else ''}: one pass, tile {p.tile}, window {p.window}, "
+                f"ring {p.ring}, smem {p.smem_bytes} B, grid {p.grid}")
         for tag in SHARD_BCS[len(grid)]:
             bcs = BC_SETS[tag]
             u, rhs = rand(shape), rand(shape)
@@ -1462,7 +1576,7 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
                     ue, re = cut.extend(ub, H), cut.extend(rb, H)
                     outs = [fn(ue[i], re[i], dq, bcs, ns, *cut.where_args(i, H=H))
                             for i in range(len(ue))]
-                    for i in cut.picks:
+                    for i in range(len(ue)):  # every shard
                         want = plain(ue[i], re[i], dq, bcs, ns, *cut.where_args(i, H=H))
                         for part, g, w in zip("ur", parts(outs[i]), parts(want)):
                             stats.note(key, *compare(
@@ -1530,10 +1644,10 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
                     stats.note(key, *compare(
                         f"stitched {key} {form} ({part}) {where} {tag} vs df_residual_3d", g, w))
             b10, b11 = ("B10y", "B11y") if cut.zy else ("B10", "B11")
-            log(f"[sharded] {where} {tag}: {b10} (ns in {SWEEPS}, both forms) and {b11} (four "
-                "forms) bitwise equal to their plain versions on a corner, an inner and the "
-                "last shard; stitched, and as the engine's passes, bitwise equal to the "
-                "unsharded kernels")
+            log(f"[sharded] {where} {tag}: {b10} (ns in {SWEEPS}, both forms; one launch a "
+                f"call) bitwise equal to its plain version on every shard, {b11} (four forms) "
+                "on a corner, an inner and the last shard; stitched, and as the engine's "
+                "passes, bitwise equal to the unsharded kernels")
             if n == 220 and grid in ((2,), (2, 2)) and tag == "Ax":
                 _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs)  # paths 4 / 4b level 0
             del u, rhs, ub, rb, u64, rhs64, e32, ue64, rb64, ee, outs, whole, got
@@ -1545,7 +1659,7 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
     (2-sweep passes over a 4-point halo; the 1-sweep residual pass over 3;
     the zero-rhs defect with and without the update).  Work is counted
     from the extended block: its halo points are read and swept too."""
-    from ndsm_tpu_torch.ops import df_sharded, zc_sharded
+    from ndsm_tpu_torch.ops import df_sharded, zc, zc_sharded
 
     real = ub[0].numel()
     lab = f"{cut.where}, shard 0"
@@ -1559,8 +1673,24 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
         work = (4 * (2 * ext + (2 if res else 1) * real), 10 * ns * ext + (13 * real if res else 0),
                 PEAK_F32)
         args = (dq, bcs, ns) + cut.where_args(0, H=H)
-        stats.timed(key, lambda: fn(ue, re, *args), lambda: plain(ue, re, *args), real, ns,
-                    f"{lab} (+{H} halo) ns={ns}", True, work=work)
+        nev = stats.timed(key, lambda: fn(ue, re, *args), lambda: plain(ue, re, *args), real, ns,
+                          f"{lab} (+{H} halo) ns={ns}", True, work=work)
+        if nev > 1:
+            raise AssertionError(f"{key}: {nev} device events a call, not 1")
+        # the one-launch pass against the previous design (2 ns half-sweep
+        # launches over the whole block, + 1 residual launch), in turns
+        pos = cut.where_args(0, H=H)
+        offsets, extents, halos = pos if cut.zy else ((pos[0],), (pos[1],), (pos[2],))
+        prev = lambda: zc_sharded._smooth_cuda(ue, re, dq, bcs, ns, offsets, extents, halos,
+                                               res, key, previous=True)  # noqa: E731
+        for part, g, w in zip("ur", (prev() if res else (prev(),)),
+                              (fn(ue, re, *args) if res else (fn(ue, re, *args),))):
+            compare(f"{key}({part}) previous design vs the pass", g, w)
+        p = zc.shard_pass_plan(ue.shape, (halos + (0,))[:2], ns, res)
+        compare_kernel_designs(
+            key, f"{lab} (+{H} halo) ns={ns} (pass tile {p.tile}, window {p.window}, grid "
+            f"{p.grid})", real, lambda: plain(ue, re, *args), prev, lambda: fn(ue, re, *args),
+            "lane_pass", first_name="shard_", ns=ns, work=work)
     ext = ue64[0].numel()
     for base, args, work in (
             ("df_residual_sharded_3d", (ue64[0], None, dq, bcs) + cut.where_args(0),

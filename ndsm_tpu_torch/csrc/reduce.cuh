@@ -38,4 +38,26 @@ __device__ __forceinline__ float block_tree_sum(float acc, float* sh) {
   return total;
 }
 
+// block_tree_sum's fold done by one warp that holds the kSumThreads
+// values, slot lane + 32 * j in v[j]: strides 512 .. 32 pair v[j] with
+// v[j + 16], .., v[j + 1] in registers, strides 16 .. 1 are shuffles.
+// Lane 0 gets the block's sum, bit for bit block_tree_sum's (the same
+// pairs in the same order); all 32 lanes must call it.
+__device__ __forceinline__ float warp_tree_sum(float (&v)[32]) {
+  // constant bounds, so that v stays in registers
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = v[j] + v[j + 16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = v[j] + v[j + 8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = v[j] + v[j + 4];
+  v[0] = v[0] + v[2];
+  v[1] = v[1] + v[3];
+  v[0] = v[0] + v[1];
+  float s = v[0];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s = s + __shfl_down_sync(0xffffffffu, s, d);
+  return s;
+}
+
 }  // namespace ndsm

@@ -9,9 +9,8 @@ bcs, number of sweeps):
     its ``launches`` count, or raises.  The sweeps, with the residual
     fused into the last pass, are one-lane calls of the multi-sweep pass
     kernel of ``csrc/fused_smooth.cu`` (launched by :func:`sweeps_cuda`,
-    which ops/fused.py calls with B lanes); the mean form runs that file's
-    half-sweep kernels and ``csrc/zc_smooth.cu``'s reduction passes.
-    Built at first use;
+    which ops/fused.py calls with B lanes); the mean form launches
+    ``csrc/zc_smooth.cu``'s all-Neumann kernel once.  Built at first use;
   * on a CPU tensor it runs its plain PyTorch version below, built from
     ops/stencils.py.
 
@@ -35,12 +34,13 @@ shared-memory ring of planes, out of place (ping-ponging between the
 result and one scratch stack; the first pass adds ``cor`` on load, the
 last writes the residual of its final state).  :func:`pass_plan` fixes w
 and the tile from the shape alone, by a rule set from measurements on the
-H100 (PERF.md §6).  The mean form runs each sweep out of place as two
-half-sweep launches, ping-ponging between two buffers: its first
-half-sweep subtracts the previous sweep's mean on load (read from a device
-scalar, never from the host), and two launches per sweep reduce the swept
-state into the next mean.  Unlike the TPU kernels there is no shape gate
-and no padded storage: every 3D shape with extents >= 2 is taken.
+H100 (PERF.md §6).  The mean form is one launch of csrc/zc_smooth.cu
+a call, on the route :func:`mean_plan` gives the shape: a cooperative grid
+of co-resident blocks that runs every sweep, the mean's fixed-order sum
+and its fold in one launch, grid-wide barriers between the phases, or one
+block that holds a small level in shared memory.  A refused cooperative
+launch raises.  Unlike the TPU kernels there is no shape gate and no
+padded storage: every 3D shape with extents >= 2 is taken.
 """
 
 from __future__ import annotations
@@ -66,12 +66,16 @@ __all__ = [
     "zc_smooth_mean_3d_plain",
     "dirichlet_mask",
     "mean_blocks",
+    "MeanPlan",
+    "mean_plan",
     "sweeps_cuda",
     "residual_cuda",
     "PassTile",
     "pass_tile",
     "pass_plan",
     "run_passes",
+    "shard_pass_tile",
+    "shard_pass_plan",
 ]
 
 #: Most blocks of the first pass of the mean's reduction.
@@ -321,6 +325,53 @@ def _plan(shape, ns, nb, residual, width):
     return tuple(pass_tile(shape, w, residual and i == last, nb) for i, w in enumerate(widths))
 
 
+def shard_pass_tile(ext_shape, halos, width: int, residual: bool = False,
+                    tile: Optional[Tuple[int, int, int]] = None) -> PassTile:
+    """The pass of ``width`` sweeps over one shard's halo-extended block
+    ``ext_shape`` = (nz + 2Hz, ny + 2Hy, nx), ``halos`` = (Hz, Hy) (Hy = 0
+    on a z mesh), in the kernel's shard form (csrc/lane_pass.cuh): the
+    tiles cover the real (nz, ny, nx) block, by :func:`pass_tile`'s default
+    rule for it or as ``tile``; a window is the tile grown by the halo
+    2 * width (+1), clamped to the extended block; never resident."""
+    nze, nye, nx = (int(n) for n in ext_shape)
+    hz, hy = (int(h) for h in halos)
+    real = (nze - 2 * hz, nye - 2 * hy, nx)
+    p = pass_tile(real, width, residual, 1, tile)
+    window = tuple(min(n, t + 2 * p.halo) for t, n in zip(p.tile, (nze, nye, nx)))
+    ring = 2 * p.width + 2 + PASS_AHEAD + (1 if residual else 0)
+    smem = 2 * ring * window[1] * (-(-window[2] // 2) * 2) * 4
+    return p._replace(window=window, ring=ring, smem_bytes=smem, resident=False)
+
+
+def shard_pass_plan(ext_shape, halos, nsweeps: int, residual: bool = False) -> PassTile:
+    """The one pass of a per-shard smoothing call (ops/zc_sharded.py): all
+    ``nsweeps`` sweeps (w = nsweeps), the residual in it when ``residual``.
+    Raises when its window cannot fit a block's shared memory (the engine's
+    calls take w = 1 or 2).  Memoised."""
+    p = _shard_plan(tuple(int(n) for n in ext_shape), tuple(int(h) for h in halos),
+                    int(nsweeps), bool(residual))
+    if p.smem_bytes > MAX_SMEM or p.window[1] > PASS_WINDOW or p.window[2] > PASS_WINDOW:
+        raise ValueError(
+            f"per-shard pass of {nsweeps} sweeps over {tuple(ext_shape)}: a window of "
+            f"{p.window} needs {p.smem_bytes} B of shared memory (the kernel takes "
+            f"<= {MAX_SMEM} B and <= {PASS_WINDOW} x {PASS_WINDOW} points in (y, x))")
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def _shard_plan(ext_shape, halos, ns, residual):
+    return shard_pass_tile(ext_shape, halos, ns, residual)
+
+
+@functools.lru_cache(maxsize=256)
+def call_args(dq, bcs):
+    """((wz, wy, wx), w0, first colour, Dirichlet mask) of a one-level call
+    of dq (a tuple of floats) and bcs, kept per configuration (the wrappers'
+    host time is part of every call)."""
+    return stencils.stencil_weights(dq, torch.float32) + (stencils.first_color_parity(bcs),
+                                                          dirichlet_mask(bcs))
+
+
 @functools.lru_cache(maxsize=256)
 def _pass_args(dq, bcs_list, active):
     """The weights and the lanes' C arrays of a pass launch, kept per
@@ -395,24 +446,87 @@ def residual_cuda(u, rhs, dq, bcs_list, active, what: str) -> torch.Tensor:
     return r
 
 
-def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
-    """4*nsweeps + 1 launches: per sweep an out-of-place half-sweep that
-    subtracts the previous mean on load, an in-place half-sweep (both
-    one-lane calls of the lane kernels) and the two reduction passes into
-    the device scalar ``m``; at the end the last mean is subtracted in
-    place."""
+# The all-Neumann smoother's plan (csrc/zc_smooth.cu: kBlockExtra).
+#: Shared words of the block route after u and rhs (partials and m).
+MEAN_BLOCK_EXTRA = 64
+
+
+class MeanPlan(NamedTuple):
+    """How a ``zc_smooth_mean_3d`` call runs: the ``route`` ("block": one
+    block holds u and rhs in shared memory; "grid": a cooperative grid of
+    co-resident blocks with grid-wide barriers, the device's resident
+    blocks, at most ``vblocks``), the ``vblocks`` of the sum's fixed order
+    (``mean_blocks(N)``, each of ``SUM_THREADS`` virtual threads) and the
+    ``smem_bytes`` the block route takes (0 on the grid route: its blocks
+    use static shared memory)."""
+
+    route: str
+    vblocks: int
+    smem_bytes: int
+
+
+def mean_plan(shape) -> MeanPlan:
+    """The route of a level: "block" where u, rhs and the block's extra
+    words fit one block's shared memory (then at most 32 virtual blocks,
+    one a warp), else "grid"."""
+    n = int(np.prod([int(s) for s in shape]))
+    vb = mean_blocks(n)
+    smem = (2 * n + MEAN_BLOCK_EXTRA) * 4
+    if smem <= MAX_SMEM:
+        return MeanPlan("block", vb, smem)
+    return MeanPlan("grid", vb, 0)
+
+
+#: Each stream's two words of the grid route's barrier (0 when the first
+#: launch on the stream starts; a launch leaves them 0 again).  Kept, not
+#: allocated a call: zeroing new words would be a second launch a call.
+_BARRIERS: dict = {}
+
+
+def _barrier(device, stream: int) -> torch.Tensor:
+    key = (str(device), stream)
+    bar = _BARRIERS.get(key)
+    if bar is None:
+        bar = _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return bar
+
+
+def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int, plan: Optional[MeanPlan] = None,
+                      previous: bool = False) -> torch.Tensor:
+    """One launch of csrc/zc_smooth.cu's all-Neumann kernel on the route of
+    ``plan`` (default :func:`mean_plan`'s; chip_smoke.py also runs the grid
+    route where the plan takes the block route).  ``previous``: the first
+    design instead (chip_smoke.py times it beside the kernel), 4 * nsweeps
+    + 1 launches: per sweep an out-of-place half-sweep that subtracts the
+    previous mean on load, an in-place half-sweep (one-lane calls of
+    fused_smooth.cu's half-sweep kernels) and the two reduction passes into
+    the device scalar ``m``; at the end the last mean subtracted in place."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nz, ny, nx = (int(s) for s in u.shape)
     n = u.numel()
     nblocks = mean_blocks(n)
-    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
+    (wz, wy, wx), w0, first, _ = call_args(tuple(float(q) for q in dq), bcs)
+    nf = float(np.float32(n))
+    if not previous:
+        plan = mean_plan(u.shape) if plan is None else plan
+        out = torch.empty_like(u)
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            grid = plan.route == "grid"
+            parts = torch.empty(nblocks, dtype=torch.float32, device=u.device) if grid else None
+            bar = _barrier(u.device, stream) if grid else None
+            cuda_build.check(lib.ndsm_mean_smooth_f32(
+                u.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+                parts.data_ptr() if grid else None, bar.data_ptr() if grid else None,
+                nz, ny, nx, nblocks, int(nsweeps), first,
+                0 if grid else 1, wz, wy, wx, w0, nf, stream), "zc_smooth_mean_3d")
+        return out
     color, dmask, act = _lane_args((bcs,), (True,))
     bufs = [torch.empty_like(u) for _ in range(min(2, int(nsweeps)))]
     parts = torch.empty(nblocks, dtype=torch.float32, device=u.device)
     m = torch.empty(1, dtype=torch.float32, device=u.device)
-    nf = float(np.float32(n))
     src, sub = u, None
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream

@@ -11,8 +11,9 @@ global index of the first real plane and ``nz_global`` the level's extent.
 It runs ``2 * nsweeps`` half-sweeps over the whole extended block, with the
 colour of global plane ``z0 - H + kz`` and the Dirichlet faces of the
 level frozen in global coordinates, and returns u over the real block
-(a view of the swept extended block).  ``zc_smooth_residual_sharded_3d``
-also returns ``r = rhs - L[u]`` of the swept state over the real block,
+(the plain version: a view of the swept extended block).
+``zc_smooth_residual_sharded_3d`` also returns ``r = rhs - L[u]`` of the
+swept state over the real block,
 zero on Dirichlet points.  H must be >= 2*nsweeps (>= 2*nsweeps + 1 for
 the residual): then the real planes equal the unsharded ``zc_smooth_3d``
 on those planes bit for bit.
@@ -27,12 +28,17 @@ the z-extended blocks), so stitched, the real blocks again equal the
 unsharded kernel bit for bit.  JAX rounds the y halo up to 8 planes (the
 TPU's sublanes); the kernels here take any halo of at least the need.
 
-On a CUDA tensor the wrappers launch ``csrc/zc_sharded.cu`` (one launch a
-half-sweep, the first out of place, plus one residual launch; the z form
-is the y form with Hy = 0) and add one to their own ``launches``, or
-raise; on a CPU tensor they run the plain versions below, built from
-``stencils.shard_masks`` and ``stencils.masked_red_black``.  There is no
-shape or offset gate: odd extents and odd offsets are taken.
+On a CUDA tensor the wrappers make ONE launch of ``csrc/zc_sharded.cu``:
+the shard form of the multi-sweep pass (``csrc/lane_pass.cuh``), all
+``nsweeps`` sweeps and the residual in one pass, tiled over the real block
+by ``zc.shard_pass_plan`` (the extended block's partitioned ends are the
+pass's cut edges; the z form is the y form with Hy = 0 and y not cut); u
+and r come back as contiguous real blocks.  Each wrapper adds one to its
+own ``launches``, or raises (a failed build, a refused launch, a pass
+whose window does not fit a block's shared memory).  On a CPU tensor they
+run the plain versions below, built from ``stencils.shard_masks`` and
+``stencils.masked_red_black``.  There is no shape or offset gate: odd
+extents and odd offsets are taken.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from typing import Tuple
 import torch
 
 from . import stencils
-from .zc import check_config, check_level, count_plain, dirichlet_mask
+from .zc import call_args, check_config, check_level, count_plain, shard_pass_plan
 
 __all__ = [
     "zc_smooth_sharded_3d",
@@ -147,21 +153,36 @@ def _zy(u_ext, offsets, extents, halos):
     return (int(offsets[0]), 0), (int(extents[0]), int(u_ext.shape[1])), (int(halos[0]), 0)
 
 
-def _smooth_cuda(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, residual, what):
+def _smooth_cuda(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, residual, what,
+                 previous=False):
+    """One launch of the pass's shard form (csrc/zc_sharded.cu:
+    ndsm_shard_pass_f32) with the plan of ``zc.shard_pass_plan``; u (and
+    r) of the real block, contiguous.  ``previous``: the first design
+    instead, 2 * nsweeps half-sweep launches over the whole block (+1
+    residual launch), u a view of the swept block (chip_smoke.py times it
+    beside the pass)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nze, nye, nx = (int(s) for s in u_ext.shape)
     (z0, y0), (NZ, NY), (Hz, Hy) = _zy(u_ext, offsets, extents, halos)
-    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    red, dm = stencils.first_color_parity(bcs), dirichlet_mask(bcs)
+    (wz, wy, wx), w0, red, dm = call_args(tuple(float(q) for q in dq), bcs)
     zg0, yg0 = z0 - Hz, y0 - Hy
-    out = torch.empty_like(u_ext)
     nz, ny = nze - 2 * Hz, nye - 2 * Hy
+    out = torch.empty_like(u_ext) if previous else \
+        torch.empty((nz, ny, nx), dtype=torch.float32, device=u_ext.device)
     r = torch.empty((nz, ny, nx), dtype=torch.float32, device=u_ext.device) if residual \
         else None
     with torch.cuda.device(u_ext.device):
         stream = torch.cuda.current_stream(u_ext.device).cuda_stream
+        if not previous:
+            plan = shard_pass_plan((nze, nye, nx), (Hz, Hy), nsweeps, residual)
+            cuda_build.check(lib.ndsm_shard_pass_f32(
+                u_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(),
+                r.data_ptr() if residual else None, nze, nye, nx, nz, ny, Hz, Hy, zg0, yg0,
+                NZ, NY, 1 if len(halos) == 2 else 0, red, dm, int(nsweeps), *plan.tile,
+                wz, wy, wx, w0, stream), what)
+            return (out, r) if residual else out
         cuda_build.check(lib.ndsm_shard_half_oop_f32(
             u_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(), nze, nye, nx, zg0, yg0,
             NZ, NY, red, dm, wz, wy, wx, w0, stream), what)
