@@ -56,14 +56,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          event a call fails the phase), and against the previous
          design (4 ns + 1 launches) in turns at 256^3, 128^3, 32^3 and 16^3
          ("[design]");
-       - the colour-split smoother (compact_smooth_3d) with its split and
-         merge passes at 220^3, 110^3, 55^3 and 221x220x221 (odd nx), three
-         component BC sets: halves against the plain version (ghosts
-         included), merged against the dense kernel zc_smooth_3d, the split
-         and merge as an exact round trip; the lane form on the three
-         stacked lanes at 220^3 and 110^3 against three one-lane calls and
-         with the Az lane frozen; the whole dense-interface call (split,
-         sweeps, merge) timed beside zc_smooth_3d.
+       - the colour-split smoother (compact_smooth_3d: ceil(ns / w)
+         launches of the halves form of the pass, "[compact plan]" lines
+         for every level of path 3) with its split and merge passes at
+         220^3, 110^3, 55^3 and 221x220x221 (odd nx), three component BC
+         sets: halves against the plain version (ghosts included), merged
+         against the dense kernel zc_smooth_3d, the split and merge as an exact round
+         trip; the lane form on the three stacked lanes at 220^3 and 110^3
+         against three one-lane calls and with the Az lane frozen; the
+         whole dense-interface call (split, sweeps, merge) timed beside
+         zc_smooth_3d; at 220^3 (one lane, three lanes) the pass against
+         the previous design (2 ns half-sweep launches) in turns
+         ("[design]").
   3. path 1, the main path: ``vector_potential`` in mixed precision with
      default options (the three component solves batched on the card) on
      the analytic potential-field case at 22^3 and 220^3, checked against
@@ -83,8 +87,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      cycles within 1, max|A_on - A_off| <= 5e-9.
      Path 3: the same case with ``Options(smoother="compact")``, components
      batched: the colour-split lane kernel with its split and merge passes
-     must have launched and the dense lane smoothers must not.  Path 3b:
-     the same with ``batch_components="off"`` (the one-lane calls).  Both
+     must have launched and the dense lane smoothers must not; the compact
+     pass launches of the warm call are counted and must be there, the
+     dense pass's must not.  Path 3b: the same with
+     ``batch_components="off"`` (the one-lane calls).  Both
      are held to path 1 like path 1b, and the script prints whether A is
      exactly the dense route's of the same batching.  Each route runs three times
      warm without the profiler (once counted, twice in turns); paths 1, 1b
@@ -98,8 +104,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      (110 x 110) and 4 x 2 (55 x 110) and 256^3 over 4 x 2 (64 x 128) on a
      (z, y) mesh, Ax, Az and Ay BCs (Neumann y faces too): each kernel (ns
      1, 2, 5, with and without the residual, on every shard; the defect in
-     its four forms on a corner, an inner and the last shard) against its
-     plain version,
+     its four forms on every shard, r32 over the real block and v over the
+     whole extended block) against its plain version,
      the stitched shards against the unsharded zc_smooth_3d /
      zc_smooth_residual_3d / df_residual_3d of the whole level, and the
      engine's passes of width 2 (width 1 on 256^3's 4-plane blocks) with
@@ -109,7 +115,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      event a call fails the phase).  Timed at the level 0
      of paths 4 and 4b (shard 0 with its halo), and against the previous
      design (2 ns half-sweep launches + 1 residual launch, also held
-     bitwise to the pass) in turns ("[design]").
+     bitwise to the pass) in turns ("[design]").  B11/B11y are one launch
+     of the shard form of the defect's z-marching tile, timed there too
+     and against the previous design (one thread a point of the extended
+     block, also held bitwise to the tile) in turns ("[design]").
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
@@ -485,6 +494,11 @@ def log_pass_plans(h, nb=3):
               f"{res.smem_bytes} B grid {res.grid}]")
 
 
+# lane_pass's template flags (S, C) as mangled in ptxas's entry names:
+# the lane form, the shard form and the halves form
+PASS_FORMS = {"Lb0ELb0": "lane form", "Lb1ELb0": "shard form", "Lb0ELb1": "halves form"}
+
+
 def phase_device():
     import torch
 
@@ -514,7 +528,8 @@ def phase_device():
             log(f"[build] {entry[:60]}: {what}")
             if "lane_pass" in entry:  # the multi-sweep pass (32- and 64-bit indexing)
                 bits = 64 if "lane_passIy" in entry else 32
-                form = "shard form" if "Lb1E" in entry else "lane form"
+                flags = entry.split("lane_passI", 1)[1][1:].split("EEEv", 1)[0]
+                form = PASS_FORMS.get(flags, flags)
                 log(f"[pass] ptxas, lane_pass {form} ({bits}-bit lane indices): {what}")
             entry = entry if "stack frame" in line else None
     return name, smi
@@ -973,6 +988,13 @@ def phase_compact_kernels(stats: Stats):
             stats.note(key, *compare(f"{key}({part}) {lab}", g, w))
 
     h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
+    for shape in h.shapes:  # the passes of path 3 (3b: one lane; the same tiles)
+        for nb in (3, 1):
+            plan = compact.compact_plan(shape, MS, nb)
+            log(f"[compact plan] {'x'.join(map(str, shape))} x{nb} ns={MS}: " + "; ".join(
+                    f"w={p.width} {'resident' if p.resident else 'marching'} tile {p.tile} "
+                    f"window {p.window} ring {p.ring} smem {p.smem_bytes} B grid {p.grid}"
+                    for p in plan))
     shapes = [(h.shapes[l], h.dq[l]) for l in (0, 1, 2)] + [((221, 220, 221), h.dq[0])]
     for shape, dq in shapes:
         nx, pts = shape[-1], int(np.prod(shape))
@@ -991,8 +1013,8 @@ def phase_compact_kernels(stats: Stats):
             for ns in SWEEPS:
                 lab = f"{sname} {tag} ns={ns}"
                 got = compact.compact_smooth_3d(R, B, rR, rB, dq, bcs, ns, nx)
-                halves("compact_smooth_3d", lab, got,
-                       compact.compact_smooth_3d_plain(R, B, rR, rB, dq, bcs, ns, nx))
+                want = compact.compact_smooth_3d_plain(R, B, rR, rB, dq, bcs, ns, nx)
+                halves("compact_smooth_3d", lab, got, want)
                 # merged, the compact sweeps are the dense kernel's, bit for bit
                 stats.note("compact_smooth_3d", *compare(
                     f"compact_smooth_3d merged vs zc_smooth_3d {lab}",
@@ -1014,8 +1036,12 @@ def phase_compact_kernels(stats: Stats):
                             pts, MS, lab, shape[0] == 220 and tag == "Ax", busy=tag == "Ax")
                 cms, zms = time_pair(lambda: compact.smooth_dense(u, rhs, dq, bcs, MS),
                                      lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS))
-                log(f"[time] dense-interface call {lab}: split u, split rhs, {2 * MS} "
-                    f"half-sweeps, merge {cms:.4f} ms; zc_smooth_3d {zms:.4f} ms")
+                log(f"[time] dense-interface call {lab}: split u, split rhs, "
+                    f"{len(compact.compact_plan(shape, MS))} passes, merge {cms:.4f} ms; "
+                    f"zc_smooth_3d {zms:.4f} ms")
+                if shape[0] == 220 and tag == "Ax":
+                    compare_compact(stats, "compact_smooth_3d", lab, (R[None], B[None]),
+                                    (rR[None], rB[None]), dq, (bcs,), nx)
         log(f"[kernels] {sname}: compact_smooth_3d halves bitwise equal to the plain version "
             f"(ghosts included) and, merged, to zc_smooth_3d / _residual / _cor; split and "
             f"merge bitwise and an exact round trip (three BC sets, ns in {SWEEPS})")
@@ -1070,10 +1096,37 @@ def phase_compact_kernels(stats: Stats):
         cms, fms = time_pair(lambda: compact.smooth_dense(u, rhs, dq, lanes, MS),
                              lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS))
         zms = time_ms(lambda: compact.smooth_dense(u, rhs, dq, lanes, MS, None, frozen))
-        log(f"[time] dense-interface lane call {lab}: split u, split rhs, {2 * MS} "
-            f"half-sweeps, merge {cms:.4f} ms (Az frozen {zms:.4f} ms); "
-            f"fused_smooth_3d_batched {fms:.4f} ms")
+        log(f"[time] dense-interface lane call {lab}: split u, split rhs, "
+            f"{len(compact.compact_plan(shape, MS, 3))} passes, merge {cms:.4f} ms (Az frozen "
+            f"{zms:.4f} ms); fused_smooth_3d_batched {fms:.4f} ms")
+        if head:
+            compare_compact(stats, "compact_smooth_3d_batched", lab, (R, B), (rR, rB), dq, lanes,
+                            nx)
         del u, rhs, cor, R, B, rR, rB
+
+
+def compare_compact(stats, key, label, halves_, rhs_, dq, bcs_list, nx):
+    """At ns = MS on a (B, nz, ny, hx) stack of halves: the pass against
+    the previous design (2*MS half-sweep launches, held bitwise to it) in
+    turns ("[design]")."""
+    from ndsm_tpu_torch.ops import compact
+
+    R, B = halves_
+    rR, rB = rhs_
+    nb = int(R.shape[0])
+    pts = nb * int(R.shape[1] * R.shape[2]) * nx
+    act = (True,) * nb
+    new = lambda: compact._sweeps_cuda(R, B, rR, rB, dq, bcs_list, MS, nx, act, key)  # noqa: E731
+    prev = lambda: compact._sweeps_cuda(R, B, rR, rB, dq, bcs_list, MS, nx, act, key,  # noqa: E731
+                                        previous=True)
+    plain = lambda: compact.compact_smooth_3d_batched_plain(  # noqa: E731
+        R, B, rR, rB, dq, bcs_list, MS, nx)
+    for part, g, w in zip("RB", prev(), new()):
+        compare(f"{key}({part}) {label}: previous design vs the pass", g, w)
+    plan = compact.compact_plan((int(R.shape[1]), int(R.shape[2]), nx), MS, nb)
+    compare_kernel_designs(key, f"{label} ({2 * MS} half-sweeps against {len(plan)} passes, "
+                           f"widths {[p.width for p in plan]})", pts, plain, prev, new,
+                           "lane_pass", first_name="compact_half")
 
 
 def phase_pass_widths():
@@ -1178,6 +1231,20 @@ def log_passes(what, launches, passes, keys):
         f"({passes / max(calls, 1):.2f} a call); the previous design: {prev} launches")
     if calls and not passes:
         raise AssertionError(f"{what}: the pass kernel never launched")
+
+
+def log_compact_passes(what, launches, passes, dense_passes, key):
+    """The colour-split smoother's launches of a warm call: the wrapper
+    calls, the pass launches behind them (its own counter), what the
+    previous design launched for the same calls (2*MS half-sweeps a call);
+    the compact passes must be there, the dense pass's must not."""
+    calls = launches[key]
+    log(f"[{what}] colour-split smoothing: {calls} {key} calls, {passes} compact pass "
+        f"launches ({passes / max(calls, 1):.2f} a call); the previous design: "
+        f"{2 * MS * calls} half-sweeps; dense pass launches {dense_passes}")
+    if not passes or dense_passes:
+        raise AssertionError(f"{what}: {passes} compact pass launches, {dense_passes} dense "
+                             "pass launches")
 
 
 _CASES = {}
@@ -1290,6 +1357,8 @@ def phase_main_path():
         walls[tag] = wall_c
         check_counts(f"main 220^3 warm, smoother=compact, batch_components={batch}",
                      counted[tag], ops.plain_cuda_counts(), need, never=DENSE_3D)
+        log_compact_passes(f"path {tag}", counted[tag], ops.compact_pass_launches(),
+                           ops.pass_launches(), need[0])
         dc = float(np.abs(A_c - A_on).max())
         # the dense route with the same batching: predicted to be the same bits
         same = dc if batch == "auto" else float(np.abs(A_c - A_off).max())
@@ -1630,11 +1699,10 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
                     args = ((ue64[i], rb64[i] if with_rhs else None)
                             + ((ee[i],) if upd else ()) + (dq, bcs) + cut.where_args(i))
                     outs.append(getattr(df_sharded, key)(*args))
-                    if i in cut.picks:
-                        want = getattr(df_sharded, key + "_plain")(*args)
-                        for part, g, w in zip(("r32", "max", "u"), outs[i], want):
-                            stats.note(key, *compare(
-                                f"{key} {form} ({part}) {where} {tag} shard {i}", g, w))
+                    want = getattr(df_sharded, key + "_plain")(*args)
+                    for part, g, w in zip(("r32", "max", "u"), outs[i], want):
+                        stats.note(key, *compare(
+                            f"{key} {form} ({part}) {where} {tag} shard {i}", g, w))
                 whole = df.df_residual_3d(u64, rhs64 if with_rhs else None,
                                           e32 if upd else None, dq, bcs)
                 got = (cut.join([o[0] for o in outs]), torch.stack([o[1] for o in outs]).max())
@@ -1645,9 +1713,9 @@ def phase_sharded_kernels(stats: Stats, configs=SHARD_CONFIGS, dev="cuda"):
                         f"stitched {key} {form} ({part}) {where} {tag} vs df_residual_3d", g, w))
             b10, b11 = ("B10y", "B11y") if cut.zy else ("B10", "B11")
             log(f"[sharded] {where} {tag}: {b10} (ns in {SWEEPS}, both forms; one launch a "
-                f"call) bitwise equal to its plain version on every shard, {b11} (four forms) "
-                "on a corner, an inner and the last shard; stitched, and as the engine's "
-                "passes, bitwise equal to the unsharded kernels")
+                f"call) and {b11} (four forms; r32 and the whole extended v) bitwise equal to "
+                "their plain versions on every shard; stitched, and as the engine's passes, "
+                "bitwise equal to the unsharded kernels")
             if n == 220 and grid in ((2,), (2, 2)) and tag == "Ax":
                 _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs)  # paths 4 / 4b level 0
             del u, rhs, ub, rb, u64, rhs64, e32, ue64, rb64, ee, outs, whole, got
@@ -1692,15 +1760,27 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
             f"{p.grid})", real, lambda: plain(ue, re, *args), prev, lambda: fn(ue, re, *args),
             "lane_pass", first_name="shard_", ns=ns, work=work)
     ext = ue64[0].numel()
-    for base, args, work in (
-            ("df_residual_sharded_3d", (ue64[0], None, dq, bcs) + cut.where_args(0),
-             (8 * ext + 4 * real, 14 * real, PEAK_F64)),
-            ("df_update_residual_sharded_3d", (ue64[0], None, ee[0], dq, bcs) + cut.where_args(0),
+    pos = cut.where_args(0)
+    offsets, extents = (pos if cut.zy else ((pos[0],), (pos[1],)))
+    real_shape = tuple(n - 2 for n in ue64[0].shape[:len(offsets)]) + tuple(
+        ue64[0].shape[len(offsets):])
+    for base, e, work in (
+            ("df_residual_sharded_3d", None, (8 * ext + 4 * real, 14 * real, PEAK_F64)),
+            ("df_update_residual_sharded_3d", ee[0],
              (20 * ext + 4 * real, 14 * real + ext, PEAK_F64))):
         key = cut.key(base)
         fn, plain = getattr(df_sharded, key), getattr(df_sharded, key + "_plain")
+        args = (ue64[0], None) + (() if e is None else (e,)) + (dq, bcs) + pos
         stats.timed(key, lambda: fn(*args), lambda: plain(*args), real, 1,
                     f"{lab} (+1 halo) zero-rhs", True, work=work)
+        # the tile against the previous design (one thread a point), in turns
+        prev = lambda: df_sharded._defect_cuda(ue64[0], None, e, dq, bcs, offsets,  # noqa: E731
+                                               extents, real_shape, key, previous=True)
+        for part, g, w in zip(("r32", "max", "u"), prev(), fn(*args)):
+            compare(f"{key} ({part}) previous design vs the tile", g, w)
+        compare_kernel_designs(key, f"{lab} (+1 halo) zero-rhs", real, lambda: plain(*args),
+                               prev, lambda: fn(*args), "defect_tile_f64",
+                               first_name="defect_sharded_f64", ns=1, work=work)
 
 
 def phase_dist_paths(ref):

@@ -4,49 +4,52 @@
 // its colour halves and merge them back.
 //
 // Replaces ndsm_tpu/ops/pallas_compact.py: compact_smooth_3d (ns sweeps of
-// R, B, rhs_R, rhs_B -> R, B) = 2*ns half-sweep launches here, each over
-// every lane at once; a single level is the stack of one lane.  The split
-// and the merge replace the tensor code the JAX engine leaves to XLA
-// around that kernel (ndsm_tpu/ops/stencils_compact.py: split_colors,
-// merge_colors).
+// R, B, rhs_R, rhs_B -> R, B) = ceil(ns / w) launches of the halves form of
+// the multi-sweep pass `lane_pass` (lane_pass.cuh, template flag C), each
+// running w sweeps of every lane; a single level is the stack of one lane.
+// The split and the merge replace the tensor code the JAX engine leaves
+// to XLA around that kernel (ndsm_tpu/ops/stencils_compact.py:
+// split_colors, merge_colors).
 //
 // Layout (ops/stencils_compact.py): with hx = ceil(nx / 2) and the row
 // parity rp = (z + y) & 1,
 //   R[z, y, k] = u[z, y, 2k + rp],   B[z, y, k] = u[z, y, 2k + 1 - rp],
 // so the half c (0 = R, 1 = B) holds x = 2k + (rp ^ c).  For odd nx the
-// last entry of a row whose parity is 1 is a ghost (x = nx); it mirrors
-// the entry before it (x = nx - 2), which is what the clamped x read of
-// the other colour's point at x = nx - 1 must see.
+// last entry of a row's odd-x half is a ghost (x = nx); it mirrors the
+// entry before it (x = nx - 2), which is what the clamped x read of the
+// other colour's point at x = nx - 1 must see.
 //
 // What they compute is the TPU kernel's: lane b sweeps with its own first
 // colour and its own frozen Dirichlet faces, in the arithmetic order of
 // the plain version, ((z pair * wz + y pair * wy) + x pair * wx - rhs) * w0.
-// Its layout is not carried over: no VMEM windows, no double-buffered
-// copies, no 2*ns halo, no static row parity, no even-extent or 128-lane
-// gate.  Any shape with nz, ny >= 2 and nx >= 4 is taken, odd nx included.
+// The TPU kernel runs all ns sweeps in one call over VMEM windows with a
+// 2*ns halo; the pass is that temporal blocking in shared memory, w sweeps
+// a launch over windows with a 2w halo (lane_pass.cuh and fused_smooth.cu
+// say how).  There is no gate on even extents or 128-wide rows: any shape
+// with nz, ny >= 2 and nx >= 4 is taken, odd nx included.
 //
-// What bounds them on the H100: by the bytes a call must move, device
-// memory.  A half-sweep writes one half and reads the other half and its
-// own rhs half, all contiguous along k: about 6 bytes per point per
-// half-sweep, 12 per sweep, half of what the dense kernels of
-// fused_smooth.cu touch (their colour is every other float of a 32-byte
-// sector).  A launch updates one half and reads only the other, so it is
-// race-free in place; a ghost is written by the thread that owns the entry
-// before it and read only by launches of the other colour.  One launch per
-// half-sweep and one thread per entry is kept: simple and
-// bitwise-checkable.  As measured (PERF.md) the half-sweep is not at the
-// memory's rate: it takes the same time a point on a level that fits the
-// L2 cache, and a thread layout without index divisions was no faster.  Each
-// thread loads six neighbours, four of them rows or planes away, so the SMs
-// pull several times those 12 bytes through L1 and L2.  Marching along z
-// with the planes kept in registers, then temporal blocking, are the later
-// steps.  The split and the merge are pure streaming passes (8 bytes a
-// point each).
+// Why the halves suit the pass: a shared row of the pass holds the
+// window's even columns, then its odd ones, which is the halves' own
+// order, so a window row is two contiguous segments of global memory
+// (the dense pass gathers every other word of a row for each half).  The
+// pass copies them a 4-byte word a lane; 16-byte copies of the segments
+// at their rows' offsets, and float2 loads in the stages, were measured
+// slower on the card (PERF.md).  What bounds it on the H100: the
+// dense pass's limits (the stage barriers, the latency of a stage's dependent
+// loads, the SMs' memory instructions); by bytes, 12 a point and pass
+// times the window overhead, as the dense pass.
 //
-// Lane freezing: a frozen lane costs no sweep work.  The in-place
-// half-sweeps launch over the active lanes only; the out-of-place ones
+// compact_half, the previous design (one launch a half-sweep, one thread an
+// entry reading its six neighbours through L1 and L2), stays as the
+// yardstick chip_smoke.py times beside the pass.  The split and the merge
+// are pure streaming passes (8 bytes a point each).
+//
+// Lane freezing: a frozen lane costs no sweep work.  The pass's blocks of
+// a frozen lane copy its halves (ghosts included); the in-place
+// half-sweeps launch over the active lanes only, the out-of-place ones
 // copy a frozen lane's half unchanged.
 
+#include "lane_pass.cuh"
 #include "stencil.cuh"
 
 namespace ndsm {
@@ -213,4 +216,33 @@ extern "C" int ndsm_compact_merge_f32(const void* r, const void* b, void* u, int
          (cudaStream_t)stream>>>((const float*)r, (const float*)b, (float*)u, nz, ny,
                                  nx);
   return (int)cudaGetLastError();
+}
+
+// w sweeps of every lane's halves in one launch of the pass's halves form
+// (ops/compact.py: compact_plan gives w and the tile), out of place from
+// (src_r, src_b) into (dst_r, dst_b), each (nb, nz, ny, ceil(nx / 2)).
+// Refuses (cudaErrorInvalidValue) an odd tx that does not span nx (a window must
+// start on an even column), and what launch_pass refuses.
+extern "C" int ndsm_compact_pass_f32(const void* src_r, const void* src_b, const void* rhs_r,
+                                     const void* rhs_b, void* dst_r, void* dst_b, int nb,
+                                     int nz, int ny, int nx, const int* color, const int* dmask,
+                                     const int* active, int w, int cz, int ty, int tx, float wz,
+                                     float wy, float wx, float w0, void* stream) {
+  if (nb < 1 || nb > ndsm::kMaxLanes || nx < 4 || w < 1 || cz < 1 || ty < 1 || tx < 1 ||
+      ((tx & 1) && tx < nx))
+    return (int)cudaErrorInvalidValue;
+  const ndsm::Lanes L = ndsm::make_lanes(nb, color, dmask, active, 0, false);
+  ndsm::PassTile T = ndsm::pass_tile(ny, nx, w, false, cz, ty, tx);
+  if (cz >= nz && ty >= ny && tx >= nx) {  // one tile holds the lane: resident if it fits
+    ndsm::PassTile R = T;
+    R.resident = 1;
+    R.ring = nz;
+    if (ndsm::pass_smem(R) <= ndsm::kMaxSmem) T = R;
+  }
+  const dim3 grid((unsigned)(((ny + ty - 1) / ty) * ((nx + tx - 1) / tx)),
+                  (unsigned)((nz + cz - 1) / cz), (unsigned)nb);
+  return ndsm::launch_pass<false, true>(
+      (const float*)src_r, nullptr, (const float*)rhs_r, (float*)dst_r, nullptr,
+      ndsm::HalfB{(const float*)src_b, (const float*)rhs_b, (float*)dst_b}, nz, ny, nx, L, T,
+      ndsm::ShardBlock{}, grid, wz, wy, wx, w0, (cudaStream_t)stream);
 }

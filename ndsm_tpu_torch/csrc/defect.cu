@@ -37,22 +37,34 @@
 // reads its six neighbours as u[q] + e[q] through L1; it stays as the
 // yardstick chip_smoke.py times beside the tile.
 //
-// defect_sharded_f64 is the same defect on one shard of a level partitioned
-// in z, or in z and y (replaces ndsm_tpu/ops/pallas_df.py:
-// df_residual_sharded_3d with parts (0,) and (0, 1), its zero_rhs and
-// update variants).  u (and e) are the shard's block extended by one halo
-// plane a side in z and hy (0 or 1) in y, (nz + 2, ny + 2hy, nx), filled by
-// the engine with the neighbours' planes or, at the ends of a line,
-// node-mirror planes (z first, then y on the z-extended block, so the
-// corners hold the diagonal neighbours' values); rhs and r32 are the real
-// block (nz, ny, nx).  The update writes v = u + e over the whole extended
-// block (the engine carries it across defect groups), the residual is
-// taken over the real points only, whose z and y neighbours on the block's
-// edges are halo points, and Dirichlet faces are tested in global z and y
-// (z0 + kz - 1 against NZ, y0 + ky - hy against NY).  Over the real block
-// r32 equals defect_f64's on the whole level bit for bit: the halo planes
-// hold the values the reflection would read.  The z form passes hy = 0,
-// y0 = 0, NY = ny.
+// The same defect on one shard of a level partitioned in z, or in z and y
+// (replaces ndsm_tpu/ops/pallas_df.py: df_residual_sharded_3d with parts
+// (0,) and (0, 1), its zero_rhs and update variants).  u (and e) are the
+// shard's block extended by one halo plane a side in z and hy (0 or 1) in
+// y, (nz + 2, ny + 2hy, nx), filled by the engine with the neighbours'
+// planes or, at the ends of a line, node-mirror planes (z first, then y on
+// the z-extended block, so the corners hold the diagonal neighbours'
+// values); rhs and r32 are the real block (nz, ny, nx).  The update writes
+// v = u + e over the whole extended block (the engine carries it across
+// defect groups), the residual is taken over the real points only, whose z
+// and y neighbours on the block's edges are halo points, and Dirichlet
+// faces are tested in global z and y (z0 + kz - 1 against NZ, y0 + ky - hy
+// against NY).  Over the real block r32 equals defect_f64's on the whole
+// level bit for bit: the halo planes hold the values the reflection would
+// read.  The z form passes hy = 0, y0 = 0, NY = ny.
+//
+// Its kernel is the shard form of the tile (template flag S): the tiles
+// and z chunks cover the real block (tile_grid on its extents), a point's
+// z neighbours on the chunk's ends and its y neighbours on the tile's
+// edges are read from u, where along a partitioned axis the block's ends
+// are halo planes (rows), read as data; along x, and along y on a z mesh,
+// the tile's reflection stays.  The update's halo points are written by
+// their owners: a halo plane by the first (last) z chunk of each tile
+// column, a halo row by the y-halo threads of the edge tiles at every
+// plane of their chunk, a corner by those threads of the first (last)
+// chunk.  defect_sharded_f64, one thread a point of the extended block,
+// is the previous design, kept as the yardstick chip_smoke.py times
+// beside it.
 
 #include "stencil.cuh"
 
@@ -120,44 +132,70 @@ struct TileGrid {
   int tiles_x, tiles_y, cz, blocks;
 };
 
+// Where a shard's real block lies (the shard form): hy halo rows a side in
+// y (0 or 1; one halo plane a side in z), the level's index (z0, y0) of its
+// (0, 0), the level's extents (NZ, NY).
+struct ShardDefect {
+  int hy, z0, y0, NZ, NY;
+};
+
+// The defect of a (kTileY, kTileX) column tile over a z chunk; with S the
+// shard form (D its block): nz, ny, nx are the real block's extents.
+template <bool S>
 __global__ void __launch_bounds__(kThreads)
 defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
                 double* __restrict__ u_out, const double* __restrict__ rhs,
                 float* __restrict__ r32, float* __restrict__ block_max, int nz, int ny,
                 int nx, int dmask, double wz, double wy, double wx, int tiles_x,
-                int tiles_y, int cz) {
+                int tiles_y, int cz, ShardDefect D) {
   // v of the current plane over the tile and its halo, double-buffered
   __shared__ double plane[2][kTileY + 2][kTileX + 2];
+  // u's plane and row of the real block's (0, 0); the level's index of it
+  // and its extents (the whole level without S)
+  const int zo = S ? 1 : 0, yo = S ? D.hy : 0;
+  const int gz0 = S ? D.z0 : 0, gy0 = S ? D.y0 : 0;
+  const int NZ = S ? D.NZ : nz, NY = S ? D.NY : ny;
   const int tiles = tiles_x * tiles_y;
   const int tile = blockIdx.x % tiles, chunk = blockIdx.x / tiles;
   const int x0 = (tile % tiles_x) * kTileX, y0 = (tile / tiles_x) * kTileY;
   const int ex = min(kTileX, nx - x0), ey = min(kTileY, ny - y0);
   const int z0 = chunk * cz, z1 = min(nz, z0 + cz);
   const int lx = threadIdx.x % kTileX, ly = threadIdx.x / kTileX;
-  const long long sz = (long long)ny * nx;
+  const long long sz = (long long)ny * nx;               // a plane of rhs and r32
+  const long long su = (long long)(ny + 2 * yo) * nx;    // a plane of u, e, u_out
   auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
+  // u's plane below and above real plane z: the halo planes (S), or the
+  // reflection at the level's faces
+  auto zlo = [&](int z) { return S ? z : reflect_lo(z); };
+  auto zhi = [&](int z) { return S ? z + 2 : reflect_hi(z, nz); };
 
   // own points: (y0 + ly + 8j, x0 + lx), j < kTileRows
   const int x = x0 + lx;
   bool own[kTileRows];
-  long long at[kTileRows];  // offset of the point in plane 0
+  long long at[kTileRows], au[kTileRows];  // offset of the point in plane 0 of rhs / of u
 #pragma unroll
   for (int j = 0; j < kTileRows; ++j) {
     const int y = y0 + ly + j * (kThreads / kTileX);
     own[j] = lx < ex && ly + j * (kThreads / kTileX) < ey;
     at[j] = (long long)y * nx + x;
+    au[j] = (long long)(y + yo) * nx + x;
   }
   // this thread's halo point (threads < kHaloPoints): the rows below and
   // above the tile, then the columns left and right of it, reflected at the
-  // domain's faces; (hy, hx) is its slot in the plane
+  // domain's faces, or (S, hy = 1) the block's halo rows beyond its y ends;
+  // (hy, hx) is its slot in the plane, hat its offset in plane 0 of u.
+  // `edge`: the point lies on a halo row of the block (S, hy = 1, the tile
+  // at that end), which the update writes
   const int t = threadIdx.x;
-  bool halo = false;
+  bool halo = false, edge = false;
   long long hat = 0;
   int hy = 0, hx = 0;
   if (t < 2 * kTileX) {
     const int i = t % kTileX, up = t / kTileX;
     halo = i < ex;
-    const int y = up ? (y0 + ey < ny ? y0 + ey : ny - 2) : (y0 > 0 ? y0 - 1 : 1);
+    const int yr = up ? y0 + ey : y0 - 1;  // the real row, -1 or ny past the ends
+    const int y = yo ? yr + yo : (up ? (yr < ny ? yr : ny - 2) : (yr >= 0 ? yr : 1));
+    edge = S && yo && halo && (yr < 0 || yr >= ny);
     hat = (long long)y * nx + x0 + i;
     hy = up ? ey + 1 : 0;
     hx = i + 1;
@@ -165,7 +203,7 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
     const int i = (t - 2 * kTileX) % kTileY, right = (t - 2 * kTileX) / kTileY;
     halo = i < ey;
     const int xx = right ? (x0 + ex < nx ? x0 + ex : nx - 2) : (x0 > 0 ? x0 - 1 : 1);
-    hat = (long long)(y0 + i) * nx + xx;
+    hat = (long long)(y0 + i + yo) * nx + xx;
     hy = i + 1;
     hx = right ? ex + 1 : 0;
   }
@@ -177,12 +215,18 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
   for (int j = 0; j < kTileRows; ++j) {
     vp[j] = vc[j] = vn[j] = rh[j] = 0.0;
     if (!own[j]) continue;
-    vp[j] = v(reflect_lo(z0) * sz + at[j]);
-    vc[j] = v(z0 * sz + at[j]);
-    vn[j] = v(reflect_hi(z0, nz) * sz + at[j]);
+    vp[j] = v(zlo(z0) * su + au[j]);
+    vc[j] = v((z0 + zo) * su + au[j]);
+    vn[j] = v(zhi(z0) * su + au[j]);
     if (rhs) rh[j] = rhs[z0 * sz + at[j]];
   }
-  if (halo) hv = v(z0 * sz + hat);
+  if (halo) hv = v((z0 + zo) * su + hat);
+  if (S && u_out && z0 == 0) {  // the lower halo plane (the first chunk)
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j)
+      if (own[j]) u_out[au[j]] = vp[j];
+    if (edge) u_out[hat] = v(hat);
+  }
 
   float a = 0.0f;
   for (int z = z0; z < z1; ++z) {
@@ -202,14 +246,14 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
       nu[j] = nr[j] = 0.0;
       ne[j] = 0.0f;
       if (!next || !own[j]) continue;
-      const long long q = reflect_hi(z + 1, nz) * sz + at[j];
+      const long long q = zhi(z + 1) * su + au[j];
       nu[j] = u[q];
       if (e) ne[j] = e[q];
       if (rhs) nr[j] = rhs[(z + 1) * sz + at[j]];
     }
     if (next && halo) {
-      nhu = u[(z + 1) * sz + hat];
-      if (e) nhe = e[(z + 1) * sz + hat];
+      nhu = u[(z + 1 + zo) * su + hat];
+      if (e) nhe = e[(z + 1 + zo) * su + hat];
     }
     __syncthreads();
 #pragma unroll
@@ -218,9 +262,9 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
       const int py = ly + 1 + j * (kThreads / kTileX), px = lx + 1;
       const int y = y0 + py - 1;
       const long long p = z * sz + at[j];
-      if (u_out) u_out[p] = vc[j];
+      if (u_out) u_out[(z + zo) * su + au[j]] = vc[j];
       float rv = 0.0f;
-      if (!on_dirichlet_face(z, y, x, nz, ny, nx, dmask)) {
+      if (!on_dirichlet_face(gz0 + z, gy0 + y, x, NZ, NY, nx, dmask)) {
         const double c2 = 2.0 * vc[j];
         double s = ((vp[j] - c2) + vn[j]) * wz;
         s = s + ((pl[py - 1][px] - c2) + pl[py + 1][px]) * wy;
@@ -230,6 +274,7 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
       r32[p] = rv;
       a = nan_max(a, fabsf(rv));
     }
+    if (S && u_out && edge) u_out[(z + zo) * su + hat] = hv;  // a halo row
     if (next) {
 #pragma unroll
       for (int j = 0; j < kTileRows; ++j) {
@@ -240,6 +285,13 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
       }
       hv = e ? nhu + (double)nhe : nhu;
     }
+  }
+  if (S && u_out && z1 == nz) {  // the upper halo plane (the last chunk)
+    const long long top = (long long)(nz + 1) * su;
+#pragma unroll
+    for (int j = 0; j < kTileRows; ++j)
+      if (own[j]) u_out[top + au[j]] = vn[j];
+    if (edge) u_out[top + hat] = v(top + hat);
   }
   write_block_max(a, block_max);
 }
@@ -288,7 +340,8 @@ namespace ndsm {
 
 // The tile kernel's grid: z chunks so that tiles * chunks blocks are all
 // resident at once (the card's SMs times the blocks an SM holds), each at
-// least one plane.
+// least one plane; (nz, ny, nx) the real block with S.
+template <bool S>
 inline TileGrid tile_grid(int nz, int ny, int nx) {
   static int dev_seen = -1, slots = 0;
   int dev = 0;
@@ -296,7 +349,7 @@ inline TileGrid tile_grid(int nz, int ny, int nx) {
   if (dev != dev_seen) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, defect_tile_f64, kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, defect_tile_f64<S>, kThreads, 0);
     slots = sms * per_sm;
     dev_seen = dev;
   }
@@ -313,25 +366,31 @@ inline TileGrid tile_grid(int nz, int ny, int nx) {
 
 }  // namespace ndsm
 
-// Block maxima the sharded kernel writes (one per kThreads points).
+// Block maxima of the one-thread-a-point kernels (one per kThreads points).
 extern "C" int ndsm_defect_blocks(int nz, int ny, int nx) {
   return (int)ndsm::blocks_for((long long)nz * ny * nx);
 }
 
 // Block maxima the tile kernel writes.
 extern "C" int ndsm_defect_tile_blocks(int nz, int ny, int nx) {
-  return ndsm::tile_grid(nz, ny, nx).blocks;
+  return ndsm::tile_grid<false>(nz, ny, nx).blocks;
+}
+
+// Block maxima the shard form of the tile writes, (nz, ny, nx) the real
+// block.
+extern "C" int ndsm_defect_sharded_tile_blocks(int nz, int ny, int nx) {
+  return ndsm::tile_grid<true>(nz, ny, nx).blocks;
 }
 
 extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
                                const void* rhs, void* r32, void* block_max,
                                int nz, int ny, int nx, int dmask, double wz,
                                double wy, double wx, void* stream) {
-  const ndsm::TileGrid g = ndsm::tile_grid(nz, ny, nx);
-  ndsm::defect_tile_f64<<<g.blocks, ndsm::kThreads, 0, (cudaStream_t)stream>>>(
+  const ndsm::TileGrid g = ndsm::tile_grid<false>(nz, ny, nx);
+  ndsm::defect_tile_f64<false><<<g.blocks, ndsm::kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
       (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx, g.tiles_x,
-      g.tiles_y, g.cz);
+      g.tiles_y, g.cz, ndsm::ShardDefect{});
   return (int)cudaGetLastError();
 }
 
@@ -348,6 +407,26 @@ extern "C" int ndsm_defect_point_f64(const void* u, const void* e, void* u_out,
   return (int)cudaGetLastError();
 }
 
+// The defect of a shard's real block (nz, ny, nx) from its extended block
+// (nz + 2, ny + 2hy, nx): one launch of the shard form of the tile,
+// ndsm_defect_sharded_tile_blocks maxima.  (z0, y0) is the level's index
+// of the real block's (0, 0), (NZ, NY) the level's extents.
+extern "C" int ndsm_defect_sharded_tile_f64(const void* u, const void* e, void* u_out,
+                                            const void* rhs, void* r32, void* block_max,
+                                            int nz, int ny, int nx, int hy, int z0, int y0,
+                                            int NZ, int NY, int dmask, double wz, double wy,
+                                            double wx, void* stream) {
+  if (hy != 0 && hy != 1) return (int)cudaErrorInvalidValue;
+  const ndsm::TileGrid g = ndsm::tile_grid<true>(nz, ny, nx);
+  ndsm::defect_tile_f64<true><<<g.blocks, ndsm::kThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
+      (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx, g.tiles_x,
+      g.tiles_y, g.cz, ndsm::ShardDefect{hy, z0, y0, NZ, NY});
+  return (int)cudaGetLastError();
+}
+
+// The previous design, one thread a point of the extended block
+// (ndsm_defect_blocks(nz + 2, ny + 2hy, nx) maxima).
 extern "C" int ndsm_defect_sharded_f64(const void* u, const void* e, void* u_out,
                                        const void* rhs, void* r32, void* block_max,
                                        int nz, int ny, int nx, int hy, int z0, int y0,

@@ -16,7 +16,8 @@
 //   zc_smooth_cor_3d         -> the passes, the first reading u + cor
 // and the lane forms of the per-lane zc_smooth_residual_3d /
 // zc_smooth_cor_3d calls of ndsm_tpu/mg/batched.py.  The pass itself is in
-// lane_pass.cuh, which zc_sharded.cu shares for its shard form.
+// lane_pass.cuh, which zc_sharded.cu shares for its shard form and
+// compact_smooth.cu for its halves form.
 // `lane_residual` stays for the colour-split route (ops/compact.py), and
 // the half-sweep kernels as the previous designs that chip_smoke.py times
 // beside the pass and beside the all-Neumann kernel of zc_smooth.cu (the
@@ -275,6 +276,6 @@ extern "C" int ndsm_lane_pass_f32(const void* src, const void* cor, const void* 
   const dim3 grid((unsigned)(((ny + ty - 1) / ty) * ((nx + tx - 1) / tx)),
                   (unsigned)((nz + cz - 1) / cz), (unsigned)nb);
   return ndsm::launch_pass<false>((const float*)src, (const float*)cor, (const float*)rhs,
-                                  (float*)dst, (float*)r, nz, ny, nx, L, T, ndsm::ShardBlock{},
-                                  grid, wz, wy, wx, w0, (cudaStream_t)stream);
+                                  (float*)dst, (float*)r, ndsm::HalfB{}, nz, ny, nx, L, T,
+                                  ndsm::ShardBlock{}, grid, wz, wy, wx, w0, (cudaStream_t)stream);
 }

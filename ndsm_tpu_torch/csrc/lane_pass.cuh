@@ -3,8 +3,9 @@
 // final state fused into it.  fused_smooth.cu launches it over whole
 // lanes (the 3D smoothers of ops/zc.py and ops/fused.py); zc_sharded.cu
 // launches its shard form over the halo-extended block of one shard of a
-// partitioned level (ops/zc_sharded.py).  fused_smooth.cu's header says
-// how a pass runs and what bounds it.
+// partitioned level (ops/zc_sharded.py); compact_smooth.cu launches its
+// halves form over the colour halves of a stack (ops/compact.py).
+// fused_smooth.cu's header says how a pass runs and what bounds it.
 //
 // The shard form (template flag S).  The block (nz, ny, nx) holds the
 // shard's real rz x ry points of each x row with hz halo planes a side in
@@ -25,6 +26,28 @@
 //   - is never resident (the whole block would have to fit).
 // Along an axis that is not partitioned (x; y on a z mesh) the block is
 // the level and the pass is the lane pass.
+//
+// The halves form (template flag C; compact_smooth.cu launches it for
+// ops/compact.py).  Each lane is the pair of colour halves of
+// ops/stencils_compact.py, R and B of (nz, ny, hx), hx = ceil(nx / 2), with
+// rhs_R and rhs_B beside them: row (z, y) of parity rp = (z + y) & 1 holds
+// x = 2k + rp in R and x = 2k + 1 - rp in B.  A shared row already holds the
+// window's even columns, then its odd ones, so with an even window start
+// wx0 (the tiles' tx is even, or one tile spans nx, and the halo 2w is
+// even) the even half of a window row is the segment (rp ? B : R)[z, y,
+// wx0/2 ...] and the odd half (rp ? R : B)[z, y, wx0/2 ...]: the window
+// load copies two contiguous segments a row, the stages run unchanged on
+// the same shared layout, and the store writes the tile's two segments
+// back, one 4-byte copy a word.  So every point sees the operands of the
+// dense pass, whose bits are the plain sweeps'.  What differs:
+//   - the ghost of odd nx: the last entry of the odd-x half of a row is
+//     x = nx, the mirror of x = nx - 2.  The tile that owns x = nx - 2
+//     writes it from that point's final value; no stage reads it, and it
+//     is never loaded;
+//   - a frozen lane's blocks copy the tile's entries of both halves (its
+//     ghosts included);
+//   - no residual and no correction (the TPU kernel has neither; the
+//     multigrid engines split u + cor before the sweeps).
 
 #pragma once
 
@@ -51,6 +74,14 @@ struct PassTile {
   int w, halo, cz, ty, tx, sy, sx, ring, resident;
 };
 
+// The B half of each array in the halves form (src, rhs and dst are then
+// the R halves); null otherwise.
+struct HalfB {
+  const float* src;
+  const float* rhs;
+  float* dst;
+};
+
 // Where a shard's halo-extended block lies in its level (the shard form;
 // the header above): halo planes hz and rows hy before the real block of
 // rz x ry, the global index (gz0, gy0) of the block's (0, 0), the level's
@@ -73,17 +104,23 @@ __device__ __forceinline__ void cp_async_wait_ahead() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAhead - 1) : "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // w red-black sweeps of every lane, out of place from v = src (+ cor) into
 // dst, and with res != nullptr the residual of the final state into res
 // (fused_smooth.cu's header says how; with S the shard form above, G its
-// block).  Grid: (tiles in y x x, z chunks, lanes); kPassThreads threads,
-// warp j of a plane's rows, lane i of a row's points.
-template <typename I, bool S>
+// block; with C the halves form above, Hb the B halves).
+// Grid: (tiles in y x x, z chunks, lanes); kPassThreads threads, warp j of
+// a plane's rows, lane i of a row's points.
+template <typename I, bool S, bool C>
 __global__ void __launch_bounds__(kPassThreads, 1)
 lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
           const float* __restrict__ rhs, float* __restrict__ dst,
-          float* __restrict__ res, int nz, int ny, int nx, Lanes L, PassTile T,
+          float* __restrict__ res, HalfB Hb, int nz, int ny, int nx, Lanes L, PassTile T,
           ShardBlock G, float wz, float wy, float wx, float w0) {
+  static_assert(!(S && C), "the halves form is not sharded");
   extern __shared__ float sm[];
   // The output's extents and where it starts in the array, the global
   // index of the array's (0, 0) and the level's extents: the whole lane,
@@ -94,7 +131,8 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
   const int nzg = S ? G.nzg : nz, nyg = S ? G.nyg : ny;
   const bool cutz = S, cuty = S && G.cuty;
   const int k = blockIdx.z;
-  const long long base = (long long)k * nz * ny * nx;
+  const int hxa = (nx + 1) >> 1;  // entries of a half row (C)
+  const long long base = (long long)k * nz * ny * (C ? hxa : nx);
   const int ntx = (nx + T.tx - 1) / T.tx;
   const int oy0 = hy + (int)(blockIdx.x / ntx) * T.ty, ox0 = (int)(blockIdx.x % ntx) * T.tx;
   const int oz0 = hz + (int)blockIdx.y * T.cz;
@@ -104,7 +142,7 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
   constexpr int nw = kPassThreads / 32;
   static_assert(nw % 2 == 0, "the rows of a warp must share their parity");
   const float* s = src + base;
-  const long long obase = (long long)k * nzo * nyo * nx;
+  const long long obase = C ? base : (long long)k * nzo * nyo * nx;
   float* d = dst + obase;
   float* r = res ? res + obase : nullptr;
   auto at = [&](int z, int y, int x) { return ((I)z * (I)ny + (I)y) * (I)nx + (I)x; };
@@ -112,7 +150,33 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
   auto ot = [&](int z, int y, int x) {
     return ((I)(z - hz) * (I)nyo + (I)(y - hy)) * (I)nx + (I)x;
   };
+  // C: entry (z, y, 0) of a half; the B halves; the tile's entries of each
+  // half of a row: ox0 / 2 + [0, ne) of the even columns, ox0 / 2 + [0, no)
+  // of the odd ones, the ghost last where the tile owns x = nx - 2.  The
+  // rows of a thread lie nw apart, so they share their parity.
+  auto hrow = [&](int z, int y) { return ((I)z * (I)ny + (I)y) * (I)hxa; };
+  const float* sb = C ? Hb.src + base : nullptr;
+  float* db = C ? Hb.dst + base : nullptr;
+  auto segments = [&](int& ne, int& no, bool& ghost) {
+    ne = (ox1 - ox0 + 1) >> 1;
+    ghost = (nx & 1) && ox0 <= nx - 2 && nx - 2 < ox1;
+    no = ((ox1 - ox0) >> 1) + (ghost ? 1 : 0);
+  };
   if (!((L.active >> k) & 1u)) {  // a frozen lane: unchanged, zero residual
+    if (C) {
+      int ne, no;
+      bool ghost;
+      segments(ne, no, ghost);
+      for (int z = oz0; z < oz1; ++z) {
+        const int rp = (z + oy0 + warp) & 1;
+        for (int y = oy0 + warp; y < oy1; y += nw) {
+          const I row = hrow(z, y) + (I)(ox0 >> 1);
+          for (int l = lane; l < ne; l += 32) (rp ? db : d)[row + l] = (rp ? sb : s)[row + l];
+          for (int l = lane; l < no; l += 32) (rp ? d : db)[row + l] = (rp ? s : sb)[row + l];
+        }
+      }
+      return;
+    }
     for (int z = oz0; z < oz1; ++z)
       for (int y = oy0 + warp; y < oy1; y += nw)
         for (int x = ox0 + lane; x < ox1; x += 32) {
@@ -122,6 +186,7 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
     return;
   }
   const float* f = rhs + base;
+  const float* fb = C ? Hb.rhs + base : nullptr;
   const float* c = cor ? cor + base : nullptr;
   const int H = T.halo;
   const int wz0 = max(0, oz0 - H), wz1 = min(nz, oz1 + H);
@@ -146,7 +211,27 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
   static_assert(kAhead == 1, "cor is held in registers for one plane");
   float cr[kRows][2];
   auto load = [&](int q) {
-    if (q < NZ) {
+    if (C && q < NZ) {
+      // one 4-byte copy a lane and half of a row (WX <= 64); the thread's
+      // rows share their parity
+      const int o = (q % T.ring) * plane, gz = wz0 + q, rp = (gz + wy0 + warp) & 1;
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        const int j = warp + nw * m;
+        if (j >= WY) continue;
+        const I row = hrow(gz, wy0 + j) + (I)(wx0 >> 1);
+        float* su = U + o + j * SX;
+        float* sf = F + o + j * SX;
+        if (lane < (WX + 1) >> 1) {
+          cp_async4(su + lane, (rp ? sb : s) + row + lane);
+          cp_async4(sf + lane, (rp ? fb : f) + row + lane);
+        }
+        if (lane < WX >> 1) {
+          cp_async4(su + HX + lane, (rp ? s : sb) + row + lane);
+          cp_async4(sf + HX + lane, (rp ? f : fb) + row + lane);
+        }
+      }
+    } else if (q < NZ) {
       const int o = (q % T.ring) * plane;
 #pragma unroll
       for (int m = 0; m < kRows; ++m) {
@@ -249,6 +334,23 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
   };
   auto store = [&](int q) {
     const float* u = U + (q % T.ring) * plane;
+    if (C) {  // the tile's two segments of each row, the ghost from x = nx - 2
+      int ne, no;
+      bool ghost;
+      segments(ne, no, ghost);
+      const int gz = wz0 + q, rp = (gz + oy0 + warp) & 1;
+      const int s0 = (ox0 - wx0) >> 1;
+      float* de = rp ? db : d;
+      float* dd = rp ? d : db;
+      for (int y = oy0 + warp; y < oy1; y += nw) {
+        const I row = hrow(gz, y) + (I)(ox0 >> 1);
+        const float* ue = u + (y - wy0) * SX + s0;
+        for (int l = lane; l < ne; l += 32) de[row + l] = ue[l];
+        for (int l = lane; l < no; l += 32)
+          dd[row + l] = ue[HX + (ghost && l == no - 1 ? l - 1 : l)];
+      }
+      return;
+    }
     for (int y = oy0 + warp; y < oy1; y += nw) {
       const I row = ot(wz0 + q, y, 0);
       for (int x = ox0 + lane; x < ox1; x += 32) d[row + x] = u[(y - wy0) * SX + col(x - wx0)];
@@ -290,14 +392,19 @@ lane_pass(const float* __restrict__ src, const float* __restrict__ cor,
     // the way), then the half-sweeps in order, each over every plane (a
     // half-sweep reads only the other colour, so its planes need no
     // barrier between them), then the stores and the residual.
-    for (int q = 0; q < NZ; ++q)
-      for (int j = warp; j < WY; j += nw)
-        for (int i = lane; i < WX; i += 32) {
-          const I g = at(q, j, i);
-          const int e = q * plane + j * SX + col(i);
-          U[e] = c ? s[g] + c[g] : s[g];
-          F[e] = f[g];
-        }
+    if (C) {
+      for (int q = 0; q < NZ; ++q) load(q);
+      cp_async_wait_all();
+    } else {
+      for (int q = 0; q < NZ; ++q)
+        for (int j = warp; j < WY; j += nw)
+          for (int i = lane; i < WX; i += 32) {
+            const I g = at(q, j, i);
+            const int e = q * plane + j * SX + col(i);
+            U[e] = c ? s[g] + c[g] : s[g];
+            F[e] = f[g];
+          }
+    }
     __syncthreads();
     for (int st = 0; st < ns; ++st) {
       for (int q = 0; q < NZ; ++q) sweep(st, q, q, q - 1, q + 1);
@@ -358,16 +465,16 @@ inline long long pass_smem(const PassTile& T) {
 // the H100's 227 KB a block or whose window exceeds 64 x 64 points in
 // (y, x); opens the dynamic shared memory of the kernel on the current
 // device at its first launch there that needs more than 48 KB.
-template <bool S>
+template <bool S, bool C = false>
 inline int launch_pass(const float* src, const float* cor, const float* rhs, float* dst,
-                       float* r, int nz, int ny, int nx, const Lanes& L, const PassTile& T,
-                       const ShardBlock& G, dim3 grid, float wz, float wy, float wx, float w0,
-                       cudaStream_t stream) {
+                       float* r, const HalfB& Hb, int nz, int ny, int nx, const Lanes& L,
+                       const PassTile& T, const ShardBlock& G, dim3 grid, float wz, float wy,
+                       float wx, float w0, cudaStream_t stream) {
   const long long smem = pass_smem(T);
   if (smem > kMaxSmem || T.sx > 64 || T.sy > kRows * kPassThreads / 32)
     return (int)cudaErrorInvalidValue;
   const bool small = small_lane(nz, ny, nx);
-  auto kern = small ? lane_pass<unsigned, S> : lane_pass<unsigned long long, S>;
+  auto kern = small ? lane_pass<unsigned, S, C> : lane_pass<unsigned long long, S, C>;
   constexpr int kDevices = 64;
   static bool opened[2][kDevices] = {};  // dynamic smem opened, per index type and device
   if (smem > 48 * 1024) {
@@ -381,8 +488,8 @@ inline int launch_pass(const float* src, const float* cor, const float* rhs, flo
       done = true;
     }
   }
-  kern<<<grid, kPassThreads, (size_t)smem, stream>>>(src, cor, rhs, dst, r, nz, ny, nx, L, T, G,
-                                                      wz, wy, wx, w0);
+  kern<<<grid, kPassThreads, (size_t)smem, stream>>>(src, cor, rhs, dst, r, Hb, nz, ny, nx, L, T,
+                                                      G, wz, wy, wx, w0);
   return (int)cudaGetLastError();
 }
 

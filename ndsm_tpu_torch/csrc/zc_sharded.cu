@@ -194,6 +194,6 @@ extern "C" int ndsm_shard_pass_f32(const void* src, const void* rhs, void* dst, 
   const dim3 grid((unsigned)(((ry + ty - 1) / ty) * ((nx + tx - 1) / tx)),
                   (unsigned)((rz + cz - 1) / cz), 1u);
   return ndsm::launch_pass<true>((const float*)src, nullptr, (const float*)rhs, (float*)dst,
-                                 (float*)r, nze, nye, nx, L, T, G, grid, wz, wy, wx, w0,
-                                 (cudaStream_t)stream);
+                                 (float*)r, ndsm::HalfB{}, nze, nye, nx, L, T, G, grid, wz, wy,
+                                 wx, w0, (cudaStream_t)stream);
 }

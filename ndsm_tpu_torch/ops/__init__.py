@@ -5,6 +5,8 @@ version, the TPU kernel it replaces and its CUDA source;
 ``launch_counts``/``reset_launch_counts`` read and zero their launch
 counters (wrapper calls that launched), ``pass_launches`` the launches of
 the 3D red-black pass kernel behind them (``zc.sweeps_cuda.passes``),
+``compact_pass_launches`` those of its halves form behind the colour-split
+wrappers (``compact._sweeps_cuda.passes``),
 ``v2d_route_launches`` the v2d launches of each route (``v2d.v2d_plan``),
 ``plain_cuda_counts`` the number of times a plain version ran on a CUDA
 tensor.
@@ -109,6 +111,10 @@ def pass_launches() -> int:
     return zc.sweeps_cuda.passes
 
 
+def compact_pass_launches() -> int:
+    return compact._sweeps_cuda.passes
+
+
 def v2d_route_launches() -> dict:
     return dict(v2d.ROUTE_LAUNCHES)
 
@@ -122,6 +128,7 @@ def reset_launch_counts() -> None:
         k[1].launches = 0
         k[2].plain_cuda_calls = 0
     zc.sweeps_cuda.passes = 0
+    compact._sweeps_cuda.passes = 0
     for route in v2d.ROUTE_LAUNCHES:
         v2d.ROUTE_LAUNCHES[route] = 0
 
@@ -144,6 +151,7 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "pass_launches",
+    "compact_pass_launches",
     "v2d_route_launches",
     "plain_cuda_counts",
     "reset_launch_counts",

@@ -27,12 +27,23 @@ contiguous: half the bytes of a dense half-sweep (ops/zc.py, ops/fused.py).
     (the problems here are never all-Neumann).
 
 Each wrapper, like ops/zc.py's: on a CUDA tensor launches the hand-written
-kernels of ``csrc/compact_smooth.cu`` (one launch per half-sweep for all
-lanes; built at first use) and adds one to its ``launches`` count, or
-raises; on a CPU tensor runs its plain PyTorch version below, built from
-ops/stencils_compact.py (``plain_cuda_calls`` counts any call of a plain
-version on a CUDA tensor).  The wrappers are functional: the first two
-half-sweeps write new halves, the rest run in place on those.
+kernels of ``csrc/compact_smooth.cu`` (built at first use) and adds one to
+its ``launches`` count, or raises; on a CPU tensor runs its plain PyTorch
+version below, built from ops/stencils_compact.py (``plain_cuda_calls``
+counts any call of a plain version on a CUDA tensor).  The wrappers are
+functional: inputs are never modified.
+
+The sweeps are ``ceil(nsweeps / w)`` launches of the halves form of the
+multi-sweep pass (``csrc/lane_pass.cuh``, flag C), each running w sweeps
+of every lane over a shared-memory ring of planes, out of place,
+ping-ponging between the result and one scratch pair of halves;
+:func:`compact_plan` is ops/zc.py's ``pass_plan`` (one resident pass of
+all sweeps on the smallest levels; the shared rows are the dense pass's)
+with an even tile width (a window starts on an even column, where both
+colours of a row start at k = wx0 / 2).  ``_sweeps_cuda.passes`` counts
+the launches (``ops.compact_pass_launches()``); ``_sweeps_cuda(...,
+previous=True)`` runs the previous design, one launch a half-sweep, for
+chip_smoke.py's "[design]" lines.
 
 Unlike the TPU kernel there is no tile search, no sweep limit and no gate
 on even extents or 128-wide rows: every shape with nz, ny >= 2 and nx >= 4
@@ -43,12 +54,14 @@ per-sweep mean is ops/zc.py's ``zc_smooth_mean_3d``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import stencils
 from . import stencils_compact as sc
+from . import zc
 from .fused import MAX_LANES, check_lanes, lane_masks, lane_residual
 from .zc import check_config, check_level, count_plain, dirichlet_mask, residual_cuda
 
@@ -63,8 +76,9 @@ __all__ = [
     "compact_smooth_3d_batched_plain",
     "split_colors_3d_plain",
     "merge_colors_3d_plain",
+    "compact_tile",
+    "compact_plan",
 ]
-
 
 # ----------------------------------------------------------------------
 # Plain PyTorch versions (oracles; CPU path)
@@ -130,10 +144,78 @@ def _int_array(values):
     return (ctypes.c_int * len(values))(*values)
 
 
-def _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active, what: str):
-    """2*nsweeps half-sweep launches over (B, nz, ny, hx) halves: the first
-    two write new halves (each lane's first colour, then its second), the
-    rest run in place on those over the active lanes only."""
+def compact_tile(shape, width: int, nb: int = 1,
+                 tile: Optional[Tuple[int, int, int]] = None) -> zc.PassTile:
+    """The geometry of one pass of ``width`` sweeps over the halves of an
+    (nb,) + shape stack (``shape`` the dense (nz, ny, nx)): ops/zc.py's
+    ``pass_tile`` without the residual (its default tile, whose width is
+    even or spans nx, or ``tile``).  Raises on a tile width that is odd and
+    does not span nx: a window must start on an even column."""
+    p = zc.pass_tile(shape, width, False, nb, tile)
+    if p.tile[2] % 2 and p.tile[2] < int(shape[2]):
+        raise ValueError(f"compact pass over {tuple(shape)}: tile width {p.tile[2]} is odd "
+                         "and does not span nx (a window must start on an even column)")
+    return p
+
+
+def compact_plan(shape, nsweeps: int, nb: int = 1) -> Tuple[zc.PassTile, ...]:
+    """The passes of a call of ``nsweeps`` sweeps on the halves of an (nb,)
+    + shape stack: ops/zc.py's ``pass_plan`` (one resident pass of all of
+    them on the smallest levels, else widths of ``zc.PASS_WIDTH`` and a
+    last narrower one), each pass's tile held to :func:`compact_tile`'s
+    rule.  Memoised."""
+    return _compact_plan(tuple(int(s) for s in shape), int(nsweeps), int(nb))
+
+
+@functools.lru_cache(maxsize=256)
+def _compact_plan(shape, ns, nb):
+    plan = zc.pass_plan(shape, ns, nb)
+    for p in plan:
+        compact_tile(shape, p.width, nb, p.tile)
+    return plan
+
+
+def _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active, what: str,
+                 plan=None, previous: bool = False):
+    """``nsweeps`` sweeps of (B, nz, ny, hx) halves: the passes of ``plan``
+    (default :func:`compact_plan`'s), out of place, ping-ponging so that
+    the last writes the returned halves; or (``previous``) the previous
+    design's 2*nsweeps half-sweep launches."""
+    if previous:
+        return _half_sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps, nx, active, what)
+    from ..utils import cuda_build
+
+    lib = cuda_build.kernels()
+    nb, nz, ny, _ = (int(s) for s in R.shape)
+    plan = compact_plan((nz, ny, nx), nsweeps, nb) if plan is None else plan
+    (wz, wy, wx), w0, color, dmask, act = zc._pass_args(
+        tuple(float(q) for q in dq), tuple(bcs_list), tuple(bool(a) for a in active))
+    out = (torch.empty_like(R), torch.empty_like(B))
+    tmp = (torch.empty_like(R), torch.empty_like(B)) if len(plan) > 1 else None
+    src = (R, B)
+    with torch.cuda.device(R.device):
+        stream = torch.cuda.current_stream(R.device).cuda_stream
+        for i, p in enumerate(plan):
+            dst = out if (len(plan) - 1 - i) % 2 == 0 else tmp
+            rc = lib.ndsm_compact_pass_f32(
+                src[0].data_ptr(), src[1].data_ptr(), rhs_R.data_ptr(), rhs_B.data_ptr(),
+                dst[0].data_ptr(), dst[1].data_ptr(), nb, nz, ny, int(nx), color, dmask, act,
+                p.width, *p.tile, wz, wy, wx, w0, stream)
+            cuda_build.check(rc, what)
+            _sweeps_cuda.passes += 1
+            src = dst
+    return out
+
+
+_sweeps_cuda.passes = 0
+
+
+def _half_sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active,
+                      what: str):
+    """The previous design: 2*nsweeps half-sweep launches over (B, nz, ny,
+    hx) halves: the first two write new halves (each lane's first colour,
+    then its second), the rest run in place on those over the active lanes
+    only."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()

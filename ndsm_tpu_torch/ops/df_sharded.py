@@ -34,15 +34,22 @@ as ops/df.py does.  rhs is the real block only: the residual reads no halo
 of it (the TPU kernel took it extended because its DMA windows are laid
 out on the extended block).
 
-On a CUDA tensor the wrappers launch ``defect_sharded_f64`` of
-``csrc/defect.cu`` (one launch; per-block maxima reduced here; the z form
-is the y form with no y halo) and add one to their own ``launches``, or
-raise; on a CPU tensor they run the plain versions below, built from
-``stencils.masked_residual`` in float64.  Inputs are never modified.
+On a CUDA tensor the wrappers launch the shard form of the defect's
+z-marching tile ``defect_tile_f64`` of ``csrc/defect.cu`` (one launch:
+column tiles and z chunks over the real block, the halo planes and rows
+read as data, the update's halo points written by the edge tiles and the
+end chunks; one maximum a block, reduced here; the z form is the y form
+with no y halo) and add one to their own ``launches``, or raise; on a CPU
+tensor they run the plain versions below, built from
+``stencils.masked_residual`` in float64.  ``_defect_cuda(...,
+previous=True)`` launches the previous design, one thread a point of the
+extended block, for chip_smoke.py's "[design]" lines.  Inputs are never
+modified.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -134,7 +141,22 @@ for _f in (df_residual_sharded_3d_plain, df_update_residual_sharded_3d_plain,
     _f.plain_cuda_calls = 0
 
 
-def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what):
+@functools.lru_cache(maxsize=256)
+def _tile_blocks(nz: int, ny: int, nx: int, device: int) -> int:
+    """Block maxima of the shard form's launch on a real block (nz, ny,
+    nx) of the card ``device`` (csrc/defect.cu: tile_grid), asked of the
+    library once a shape and card."""
+    from ..utils import cuda_build
+
+    with torch.cuda.device(device):
+        return cuda_build.kernels().ndsm_defect_sharded_tile_blocks(nz, ny, nx)
+
+
+def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what,
+                 previous: bool = False):
+    """One launch of the shard form of the tile (its maxima sized by the
+    tile grid of the real block), or (``previous``) of the previous
+    design, one thread a point of the extended block."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -144,11 +166,16 @@ def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what):
     (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float64)
     r32 = torch.empty(real, dtype=torch.float32, device=u_ext.device)
     v = torch.empty_like(u_ext) if e_ext is not None else None
-    block_max = torch.empty(lib.ndsm_defect_blocks(nz + 2, ny + 2 * hy, nx),
-                            dtype=torch.float32, device=u_ext.device)
     with torch.cuda.device(u_ext.device):
+        if previous:
+            launch, blocks = lib.ndsm_defect_sharded_f64, lib.ndsm_defect_blocks(
+                nz + 2, ny + 2 * hy, nx)
+        else:  # the tile grid of the real block, on this device
+            launch = lib.ndsm_defect_sharded_tile_f64
+            blocks = _tile_blocks(nz, ny, nx, u_ext.device.index)
+        block_max = torch.empty(blocks, dtype=torch.float32, device=u_ext.device)
         stream = torch.cuda.current_stream(u_ext.device).cuda_stream
-        cuda_build.check(lib.ndsm_defect_sharded_f64(
+        cuda_build.check(launch(
             u_ext.data_ptr(), None if e_ext is None else e_ext.data_ptr(),
             None if v is None else v.data_ptr(), None if rhs is None else rhs.data_ptr(),
             r32.data_ptr(), block_max.data_ptr(), nz, ny, nx, hy, int(offsets[0]), y0,

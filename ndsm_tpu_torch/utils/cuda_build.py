@@ -67,6 +67,7 @@ _SIGNATURES = {
                            _F, _F, _F, _F, _P),
     "ndsm_compact_half_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
                               _I, _F, _F, _F, _F, _P),
+    "ndsm_compact_pass_f32": (_P,) * 6 + (_I,) * 4 + (_IP,) * 3 + (_I,) * 4 + (_F,) * 4 + (_P,),
     "ndsm_compact_split_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _IP, _P),
     "ndsm_compact_merge_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ndsm_shard_half_oop_f32": (_P, _P, _P) + (_I,) * 9 + (_F, _F, _F, _F, _P),
@@ -74,6 +75,8 @@ _SIGNATURES = {
     "ndsm_shard_residual_f32": (_P, _P, _P) + (_I,) * 10 + (_F, _F, _F, _P),
     "ndsm_shard_pass_f32": (_P,) * 4 + (_I,) * 18 + (_F,) * 4 + (_P,),
     "ndsm_defect_sharded_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
+    "ndsm_defect_sharded_tile_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
+    "ndsm_defect_sharded_tile_blocks": (_I, _I, _I),
 }
 
 _lock = threading.Lock()
