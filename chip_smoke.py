@@ -137,7 +137,27 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      ``ShardedPoissonBVP`` at 256^3, Ax BCs, mixed, over a z mesh of 4 and
      a (z, y) mesh of 4 x 2, held to ``PoissonBVP`` on the card (cycles
      within 1, max|u_sh - u| <= 5e-9).
-  5. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  5. path 6: ``solve_poisson_bvp(..., device="cuda")`` without an
+     operator, mixed, Ax BCs, u* = sin(pi z) sin(pi y) cos(pi x) at 129^3
+     and 257^3: ierr 0, the error falls as h^2 (ratio 3.5-4.5), the warm
+     257^3 call launched B1-B4 (the one-lane 3D smoothers and the defect)
+     with no plain version on the card, and ran once more under
+     torch.profiler; on its BVP ``solve(history=True)`` gives solve's u bit
+     for bit and one du a cycle; ``solve_checkpointed`` every 4 and every
+     32 cycles (two files in a temporary directory) gives the same u bit
+     for bit, within 5e-9 of ``solve`` with ``mixed_inner_max=1`` (the
+     line says whether bitwise), and a second call on the 4-cycle file
+     runs no cycle.  ``vcycle``, ``two_grid`` (ngrids=2, niterex_max=4) and
+     ``one_grid`` (niterex_max=200) at 33^3 in fp32, within 1e-5 max|u| of
+     the port's CPU run, with the one-lane 3D smoothers launched.
+     Paths 7 and 7b: ``solve_poisson_bvp`` with ``HelmholtzOperator(1.9)``
+     (vc_tol 1e-10) and ``DiffusionOperator(lambda a, b, c: 1 + a*b*c)``,
+     Dirichlet boxes, mixed, at 129^3 and 257^3 on the manufactured cases
+     of examples/helmholtz_operator.py and diffusion_operator.py: ierr 0,
+     error ratio 3.5-4.5, no kernel and no plain version launched during
+     the warm calls (the operator route is plain tensor code), each 257^3
+     call profiled once; the generic coarse assembly timed on the host.
+  6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -550,6 +570,33 @@ def phase_kernels(stats: Stats):
     def f32(shape):
         return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
 
+    def defect_forms(u64, rhs64, e32, dq, bcs, where):
+        """The defect's four forms against its plain version, bitwise."""
+        for form, r_, e_ in (("zero-rhs", None, None), ("rhs", rhs64, None),
+                             ("zero-rhs+update", None, e32), ("rhs+update", rhs64, e32)):
+            got = df.df_residual_3d(u64, r_, e_, dq, bcs)
+            want = df.df_residual_3d_plain(u64, r_, e_, dq, bcs)
+            for part, g, w in zip(("r32", "max", "u"), got, want):
+                stats.note("df_residual_3d", *compare(
+                    f"df_residual_3d {form} ({part}) {where}", g, w))
+
+    def one_lane(shape, dq, tag, bcs):
+        """The three one-lane calls against their plain versions, bitwise."""
+        u, rhs, cor = f32(shape), f32(shape), f32(shape)
+        for ns in SWEEPS:
+            lab = f"{'x'.join(map(str, shape))} {tag} ns={ns}"
+            stats.note("zc_smooth_3d", *compare(
+                f"zc_smooth_3d {lab}", zc.zc_smooth_3d(u, rhs, dq, bcs, ns),
+                zc.zc_smooth_3d_plain(u, rhs, dq, bcs, ns)))
+            got = zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ns)
+            want = zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, ns)
+            for part, g, w in zip(("u", "r"), got, want):
+                stats.note("zc_smooth_residual_3d", *compare(
+                    f"zc_smooth_residual_3d({part}) {lab}", g, w))
+            stats.note("zc_smooth_cor_3d", *compare(
+                f"zc_smooth_cor_3d {lab}", zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ns),
+                zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, ns)))
+
     # -- the 3D smoothers and the defect (main path, component solves)
     h = GridHierarchy.from_mesh(build_test_mesh(220)[::-1])
     log_pass_plans(h)
@@ -582,13 +629,7 @@ def phase_kernels(stats: Stats):
                 + 1e-6 * rng.standard_normal(shape), dtype=torch.float64, device=dev)
             rhs64 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float64, device=dev)
             e32 = 1e-4 * f32(shape)
-            for form, r_, e_ in (("zero-rhs", None, None), ("rhs", rhs64, None),
-                                 ("zero-rhs+update", None, e32), ("rhs+update", rhs64, e32)):
-                got = df.df_residual_3d(u64, r_, e_, dq, bcs)
-                want = df.df_residual_3d_plain(u64, r_, e_, dq, bcs)
-                for part, g, w in zip(("r32", "max", "u"), got, want):
-                    stats.note("df_residual_3d", *compare(
-                        f"df_residual_3d {form} ({part}) {n}^3 {tag}", g, w))
+            defect_forms(u64, rhs64, e32, dq, bcs, f"{n}^3 {tag}")
             log(f"[kernels] {n}^3 {tag}: 3D smoothers and defect bitwise equal to their "
                 f"plain versions (ns in {SWEEPS}; defect zero-rhs/rhs/update)")
             head = n == 220 and tag == "Ax"
@@ -616,13 +657,7 @@ def phase_kernels(stats: Stats):
         rhs64 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float64, device=dev)
         e32 = 1e-4 * f32(shape)
         for tag, bcs in BC_SETS.items():
-            for form, r_, e_ in (("zero-rhs", None, None), ("rhs", rhs64, None),
-                                 ("zero-rhs+update", None, e32), ("rhs+update", rhs64, e32)):
-                got = df.df_residual_3d(u64, r_, e_, dq, bcs)
-                want = df.df_residual_3d_plain(u64, r_, e_, dq, bcs)
-                for part, g, w in zip(("r32", "max", "u"), got, want):
-                    stats.note("df_residual_3d", *compare(
-                        f"df_residual_3d {form} ({part}) {shape} {tag}", g, w))
+            defect_forms(u64, rhs64, e32, dq, bcs, f"{shape} {tag}")
         log(f"[kernels] {shape}: defect bitwise equal to its plain version (three BC sets, "
             f"zero-rhs/rhs/update)")
         del u64, rhs64, e32
@@ -633,23 +668,30 @@ def phase_kernels(stats: Stats):
     small = [(h.shapes[l], h.dq[l]) for l in range(2, h.ngrids)] + [((2, 3, 5), h.dq[0])]
     for shape, dq in small[:1] + [((221, 220, 220), h.dq[0])] + small[1:]:
         for tag, bcs in BC_SETS.items():
-            u, rhs, cor = f32(shape), f32(shape), f32(shape)
-            for ns in SWEEPS:
-                lab = f"{'x'.join(map(str, shape))} {tag} ns={ns}"
-                stats.note("zc_smooth_3d", *compare(
-                    f"zc_smooth_3d {lab}", zc.zc_smooth_3d(u, rhs, dq, bcs, ns),
-                    zc.zc_smooth_3d_plain(u, rhs, dq, bcs, ns)))
-                got = zc.zc_smooth_residual_3d(u, rhs, dq, bcs, ns)
-                want = zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, ns)
-                for part, g, w in zip(("u", "r"), got, want):
-                    stats.note("zc_smooth_residual_3d", *compare(
-                        f"zc_smooth_residual_3d({part}) {lab}", g, w))
-                stats.note("zc_smooth_cor_3d", *compare(
-                    f"zc_smooth_cor_3d {lab}", zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, ns),
-                    zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, ns)))
+            one_lane(shape, dq, tag, bcs)
         log(f"[kernels] {shape}: one-lane calls (zc_smooth_3d = fused_smooth_3d, residual, "
             f"correction) bitwise equal to their plain versions (three BC sets, ns in {SWEEPS})")
-        del u, rhs, cor
+
+    # -- path 6's hierarchy (solve_poisson_bvp at 257^3, Ax BCs, odd on
+    # every axis): the one-lane calls on every level, the defect on the
+    # finest in the regime it runs in there
+    x6 = np.linspace(0.0, 1.0, OP_SIZES[1])
+    h6 = GridHierarchy.from_mesh((x6, x6, x6))
+    bcs = BC_SETS["Ax"]
+    for shape, dq in zip(h6.shapes, h6.dq):
+        one_lane(shape, dq, "Ax", bcs)
+    shape, dq = h6.shapes[0], h6.dq[0]
+    zb, yb, xb = (m.reshape([-1 if a == ax else 1 for a in range(3)])
+                  for ax, m in enumerate(h6.meshes[0]))
+    u64 = torch.as_tensor(
+        np.sin(2.1 * zb + 0.3) * np.cos(1.7 * yb) * np.sin(2.9 * xb + 1.1)
+        + 1e-6 * rng.standard_normal(shape), dtype=torch.float64, device=dev)
+    rhs64 = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float64, device=dev)
+    defect_forms(u64, rhs64, 1e-4 * f32(shape), dq, bcs, f"{shape[0]}^3 Ax (path 6)")
+    log(f"[kernels] path 6's levels {', '.join(f'{s[0]}^3' for s in h6.shapes)} (Ax, dq of "
+        f"the {OP_SIZES[1]}^3 hierarchy): one-lane calls bitwise equal to their plain versions (ns in "
+        f"{SWEEPS}); the defect's four forms at {shape[0]}^3 bitwise too")
+    del u64, rhs64
 
     # -- the one-lane calls against the previous design, in turns (220^3)
     shape, dq = h.shapes[0], h.dq[0]
@@ -1912,6 +1954,234 @@ def phase_sharded_solves():
     return launches["5"], launches["5b"]
 
 
+# -- paths 6, 7 and 7b: solve_poisson_bvp, its drivers and injected operators
+
+PATH6 = ("zc_smooth_3d", "zc_smooth_residual_3d", "zc_smooth_cor_3d", "df_residual_3d")
+OP_SIZES = (129, 257)  # 2^k + 1; 257^3 is 17.0 M points
+
+
+def _warm_solve(what, solve):
+    """One counted warm call of ``solve()``: (u, info, wall s, launches,
+    plain versions on the card), the counters zeroed just before it."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    u, info = solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+    if info.ierr != 0:
+        raise AssertionError(f"{what}: ierr={info.ierr}")
+    if not np.isfinite(u.cpu().numpy()).all():
+        raise AssertionError(f"{what}: non-finite solution")
+    return u, info, wall, launches, plain
+
+
+def _order_check(what, errs):
+    ratio = errs[OP_SIZES[0]] / errs[OP_SIZES[1]]
+    log(f"{what} error ratio {OP_SIZES[0]}^3 / {OP_SIZES[1]}^3 = {ratio:.3f} (h^2 predicts "
+        f"{((OP_SIZES[1] - 1) / (OP_SIZES[0] - 1)) ** 2:.3f}; required 3.5-4.5)")
+    if not 3.5 <= ratio <= 4.5:
+        raise AssertionError(f"{what}: error does not fall as h^2: ratio {ratio}")
+
+
+def phase_operator_paths():
+    """Path 6: ``solve_poisson_bvp`` (no operator) on the card, mixed, Ax
+    BCs, u* = sin(pi z) sin(pi y) cos(pi x) at 129^3 and 257^3, with
+    ``solve(history=True)``, ``solve_checkpointed`` and the reduced drivers
+    (33^3, fp32, against the port's own CPU run).  Paths 7 and 7b: the
+    same entry with ``HelmholtzOperator(1.9)`` and ``DiffusionOperator(1 +
+    x y z)`` on Dirichlet boxes (examples/helmholtz_operator.py and
+    diffusion_operator.py): h^2 convergence and no kernel launched.
+    Returns path 6's launches of its warm 257^3 call."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import (DiffusionOperator, GridHierarchy, HelmholtzOperator,
+                                Options, PoissonBVP, ops, solve_poisson_bvp)
+    from ndsm_tpu_torch.mg import coarse
+    from ndsm_tpu_torch.mg.poisson import get_poisson_bvp
+
+    DDD = (("D", "D"),) * 3
+    n_big = OP_SIZES[1]
+
+    def grid(n):
+        x = np.linspace(0.0, 1.0, n)
+        s, c = np.sin(np.pi * x), np.cos(np.pi * x)
+        return x, s, c
+
+    # Path 6: the kernel route through the public entry.
+    errs, launches6 = {}, None
+    for n in OP_SIZES:
+        x, s, c = grid(n)
+        ue = s[:, None, None] * s[None, :, None] * c[None, None, :]
+        rhs = -3.0 * np.pi**2 * ue
+        u0 = np.zeros_like(rhs)
+        opts = Options(precision="mixed")
+
+        def solve():
+            return solve_poisson_bvp(u0, rhs, (x, x, x), BC_SETS["Ax"], options=opts,
+                                     device="cuda")
+
+        solve()  # cold: first use of the engines
+        u, info, wall, counts, plain = _warm_solve(f"path 6 {n}^3", solve)
+        errs[n] = float((u.cpu() - torch.as_tensor(ue)).abs().max())
+        log(f"[path 6] solve_poisson_bvp {n}^3 Ax mixed: cycles {info.cycles}, du "
+            f"{info.du_last:.6e}, warm wall {wall:.4f} s, max|u - exact| {errs[n]:.5e}")
+        if n != n_big:
+            continue
+        check_counts(f"path 6 {n}^3", counts, plain, PATH6)
+        launches6 = counts
+        log(f"[path 6] launches of a warm {n}^3 call: "
+            + ", ".join(f"{k} {counts[k]}" for k in PATH6)
+            + f"; pass launches {ops.pass_launches()}")
+        profile_solve(f"[path 6] {n}^3", solve, sum(counts[k] for k in PATH6[:3]),
+                      "lane_pass")
+        bvp = get_poisson_bvp(GridHierarchy.from_mesh((x, x, x)), BC_SETS["Ax"], opts,
+                              device="cuda")
+        u_h, info_h = bvp.solve(u0, rhs, history=True)
+        hist = info_h.du_history
+        log(f"[path 6] history=True: {len(hist)} entries for {info_h.cycles} cycles, last "
+            f"{hist[-1]:.6e} (du_last {info_h.du_last:.6e}); u bitwise solve's: "
+            f"{torch.equal(u_h, u)}")
+        if not (torch.equal(u_h, u) and len(hist) == info_h.cycles == info.cycles
+                and hist[-1] == info_h.du_last):
+            raise AssertionError("path 6: history=True changed the solve or its record")
+        del u_h
+        strict = PoissonBVP(bvp.h, BC_SETS["Ax"], Options(precision="mixed",
+                                                          mixed_inner_max=1), device="cuda")
+        u_s, info_s = strict.solve(u0, rhs)
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = {}
+            for every in (4, 32):
+                path = os.path.join(tmp, f"ck{every}.npz")
+                t0 = time.perf_counter()
+                outs[every] = bvp.solve_checkpointed(u0, rhs, checkpoint_path=path,
+                                                     checkpoint_every=every)
+                log(f"[path 6] solve_checkpointed every {every}: cycles "
+                    f"{outs[every][1].cycles}, ierr {outs[every][1].ierr}, wall "
+                    f"{time.perf_counter() - t0:.4f} s (file writes included)")
+            (u4, i4), (u32, i32) = outs[4], outs[32]
+            same = torch.equal(u4, u32)
+            d_s = float((u4 - u_s).abs().max())
+            log(f"[path 6] checkpointed every 4 and 32 bitwise equal: {same}; against solve "
+                f"with mixed_inner_max=1 ({info_s.cycles} cycles): max|diff| {d_s:.3e} "
+                f"(bitwise: {torch.equal(u4, u_s)})")
+            if not (same and i4.ierr == i32.ierr == 0 and i4.cycles == i32.cycles
+                    and d_s <= 5e-9):
+                raise AssertionError(f"path 6: checkpointed results differ ({same}, {d_s})")
+            u_r, i_r = bvp.solve_checkpointed(u0, rhs, checkpoint_every=4,
+                                              checkpoint_path=os.path.join(tmp, "ck4.npz"))
+            log(f"[path 6] resumed from the 4-cycle file: cycles {i_r.cycles} (was "
+                f"{i4.cycles}), u unchanged: {torch.equal(u_r, u4)}")
+            if i_r.cycles != i4.cycles or not torch.equal(u_r, u4):
+                raise AssertionError("path 6: a resume from a converged file ran cycles")
+        del u, u_s, u4, u32, u_r, bvp, strict
+    _order_check("[path 6]", errs)
+
+    # The reduced drivers at 33^3 in fp32, against the port's CPU run.
+    x, s, c = grid(33)
+    ue = s[:, None, None] * s[None, :, None] * c[None, None, :]
+    rhs = (-3.0 * np.pi**2 * ue).astype(np.float32)
+    u0 = np.zeros_like(rhs)
+    opts = Options(precision="fp32", niterex_max=4)
+    for name, ngrids, kw in (("vcycle", None, {}), ("two_grid", 2, {}),
+                             ("one_grid", None, {"niterex_max": 200})):
+        h = GridHierarchy.from_mesh((x, x, x), ngrids=ngrids)
+        cpu = getattr(PoissonBVP(h, BC_SETS["Ax"], opts, device="cpu"), name)(u0, rhs, **kw)
+        gpu_bvp = PoissonBVP(h, BC_SETS["Ax"], opts, device="cuda")
+        getattr(gpu_bvp, name)(u0, rhs, **kw)  # cold
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = getattr(gpu_bvp, name)(u0, rhs, **kw)
+        torch.cuda.synchronize()
+        counts, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        d = float((got.cpu() - cpu).abs().max())
+        scale = float(cpu.abs().max())
+        need = PATH6[:1] if name == "one_grid" else PATH6[:3]
+        log(f"[path 6] {name} 33^3 fp32: max|cuda - cpu| {d:.3e} (bound 1e-5 * "
+            f"{scale:.4e}); launches " + ", ".join(f"{k} {counts[k]}" for k in PATH6[:3]))
+        if got.dtype != torch.float32 or not d <= 1e-5 * scale:
+            raise AssertionError(f"path 6 {name}: {got.dtype}, max|cuda - cpu| {d}")
+        check_counts(f"path 6 {name}", counts, plain, need)
+
+    # Paths 7 and 7b: injected operators, no kernel.
+    coef = lambda a, b, c_: 1.0 + a * b * c_  # noqa: E731  (one object: it keys the caches)
+    for tag, op in (("7", HelmholtzOperator(1.9)), ("7b", DiffusionOperator(coef))):
+        errs = {}
+        for n in OP_SIZES:
+            x, s, c = grid(n)
+            sz, sy, sx = s[:, None, None], s[None, :, None], s[None, None, :]
+            ue = sz * sy * sx
+            if tag == "7":
+                rhs = -(3.0 * np.pi**2 + 1.9) * ue
+                opts = Options(precision="mixed", vc_tol=1e-10)
+            else:
+                cz, cy, cx = c[:, None, None], c[None, :, None], c[None, None, :]
+                Z, Y, X = x[:, None, None], x[None, :, None], x[None, None, :]
+                rhs = (1.0 + Z * Y * X) * (-3.0 * np.pi**2) * ue + np.pi * (
+                    Y * X * cz * sy * sx + Z * X * sz * cy * sx + Z * Y * sz * sy * cx)
+                opts = Options(precision="mixed")
+            u0 = np.zeros_like(rhs)
+
+            def solve():
+                return solve_poisson_bvp(u0, rhs, (x, x, x), DDD, options=opts, operator=op,
+                                         device="cuda")
+
+            solve()  # cold: engines, coarse matrix, face coefficients
+            u, info, wall, counts, plain = _warm_solve(f"path {tag} {n}^3", solve)
+            errs[n] = float((u.cpu() - torch.as_tensor(ue)).abs().max())
+            log(f"[path {tag}] solve_poisson_bvp {n}^3 DDD mixed, {type(op).__name__}: "
+                f"cycles {info.cycles}, du {info.du_last:.6e}, warm wall {wall:.4f} s, "
+                f"max|u - exact| {errs[n]:.5e}")
+            if any(counts.values()) or any(plain.values()):
+                raise AssertionError(f"path {tag}: kernels or plain versions ran under the "
+                                     f"operator: {counts} {plain}")
+            if n == n_big:
+                log(f"[path {tag}] launches of a warm {n}^3 call: none of the "
+                    f"{len(counts)} kernels (all counts 0), no plain version on the card")
+                profile_solve(f"[path {tag}] {n}^3", solve, 0, "lane_pass")
+                if tag == "7b":
+                    # The face terms the operator keeps while a solve runs: a
+                    # warm call with them and one forming them in every call,
+                    # each with its peak of device memory above its start.
+                    def peak_run(what):
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        w = _warm_solve(what, solve)[2]
+                        return w, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+                    held = peak_run(f"path 7b {n}^3 held")
+                    object.__setattr__(op, "held", contextlib.nullcontext)
+                    fresh = peak_run(f"path 7b {n}^3 fresh")
+                    object.__delattr__(op, "held")
+                    log(f"[path 7b] face terms: a warm {n}^3 call {held[0]:.4f} s, peak "
+                        f"{held[1]:.1f} MiB above its start, holding them for the solve; "
+                        f"{fresh[0]:.4f} s, {fresh[1]:.1f} MiB, forming them in every call; "
+                        f"entries left in the operator after the solves: {len(op._terms)}")
+                    if len(op._terms):
+                        raise AssertionError("path 7b: the operator kept its terms after a solve")
+                    h = GridHierarchy.from_mesh((x, x, x))
+                    for shape, dq in ((h.shapes[-1], h.dq[-1]), ((16, 16, 16), (1 / 15,) * 3)):
+                        t0 = time.perf_counter()
+                        S, _ = coarse.build_coarse_matrix_from_operator(op, shape, dq, DDD)
+                        log(f"[path 7b] generic coarse assembly at {'x'.join(map(str, shape))}"
+                            f" ({int(np.prod(shape))} points, S {S.shape[0]}^2): "
+                            f"{time.perf_counter() - t0:.4f} s on the host")
+            del u
+        _order_check(f"[path {tag}]", errs)
+    return launches6
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1934,6 +2204,7 @@ def main() -> int:
     path2 = phase_neumann_3d()
     path4, path4b = phase_dist_paths(ref1b)
     path5, path5b = phase_sharded_solves()
+    path6 = phase_operator_paths()
     paths = (
         (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
         (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
@@ -1947,6 +2218,7 @@ def main() -> int:
                          "card"),
         (PATH5B, path5b, "ShardedPoissonBVP 256^3 Ax mixed over a 4 x 2 (z, y) mesh on one "
                          "card"),
+        (PATH6, path6, "solve_poisson_bvp 257^3 Ax mixed"),
     )
     kernels = []
     for key, _, _, replaces, source in ops.KERNELS:

@@ -20,7 +20,8 @@ from .options import (
 )
 from .grids import GridHierarchy, coarsen_shape, num_grids
 from .mg.batched import MultiBCSolver
-from .mg.poisson import PoissonBVP
+from .mg.operator import DiffusionOperator, HelmholtzOperator, MGOperator, PoissonOperator
+from .mg.poisson import PoissonBVP, solve_poisson_bvp
 from .ops.fused import fused_smooth_3d
 from .potential.vector_potential import compute_vector_potential
 from .api import vector_potential
@@ -28,7 +29,12 @@ from .api import vector_potential
 __all__ = [
     "vector_potential",
     "compute_vector_potential",
+    "solve_poisson_bvp",
     "PoissonBVP",
+    "MGOperator",
+    "PoissonOperator",
+    "HelmholtzOperator",
+    "DiffusionOperator",
     "MultiBCSolver",
     "fused_smooth_3d",
     "GridHierarchy",

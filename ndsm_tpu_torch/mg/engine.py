@@ -37,7 +37,18 @@ What the port changes:
     extent < 3 smooths in plain torch, as JAX's runs on XLA there
     (ndsm_tpu/ops/pallas_v2d.py:v2d_kernel_supported);
   * a leading lane axis is allowed on 2D levels (the chi faces in
-    ``solve_batch``): every op acts per lane.
+    ``solve_batch``): every op acts per lane;
+  * with an injected operator (mg/operator.py, the reference's
+    MG_RELAX/MG_RESIDUAL extension point, ndsm_multigrid_core.f90:
+    106-136) no level has a kernel route: every sweep and residual is the
+    operator's ``relax`` / ``residual``, plain tensor code, as the JAX
+    engine runs an operator on its masked-XLA path (the kernels encode
+    the Poisson stencil).  Its direct coarse solve uses
+    ``operator.coarse_matrix``, or relaxes to ``ex_tol`` when that is
+    None.
+
+Besides the V-cycle, the reference's reduced drivers ``two_grid`` and
+``one_grid`` (ndsm_multigrid_core.f90:385-441).
 """
 
 from __future__ import annotations
@@ -68,9 +79,10 @@ __all__ = ["MGEngine"]
 class MGEngine:
     """Cycle functions of one problem configuration (hierarchy, boundary
     conditions, metric, dtype, device, and ``smoother``: ``"compact"`` or
-    anything else for the dense kernels; ``Options`` validates the names).
-    ``t_*`` methods take and return tensors of the engine's dtype on its
-    device."""
+    anything else for the dense kernels; ``Options`` validates the names;
+    ``operator``: an injected ``MGOperator``, or None for the Poisson
+    stencil and its kernels).  ``t_*`` methods take and return tensors of
+    the engine's dtype on its device."""
 
     def __init__(
         self,
@@ -83,6 +95,7 @@ class MGEngine:
         device,
         coarse_direct: bool = False,
         smoother: str = "auto",
+        operator=None,
     ):
         self.h = hierarchy
         self.bcs = stencils.validate_bcs(bcs, hierarchy.ndim)
@@ -91,21 +104,30 @@ class MGEngine:
         self.dtype = dtype
         self.device = torch.device(device)
         self.ndim = hierarchy.ndim
-        # The kernel route of float32 levels (module docstring).
+        self.operator = operator
+        # The kernel route of float32 levels (module docstring); none under
+        # an operator, whose stencil the kernels do not compute.
         self.kernel_route = None
-        if dtype == torch.float32 and hierarchy.ndim == 3:
+        if operator is None and dtype == torch.float32 and hierarchy.ndim == 3:
             self.kernel_route = "zc_mean" if stencils.is_all_neumann(self.bcs) else (
                 "compact" if smoother == "compact" else "zc")
-        elif dtype == torch.float32 and hierarchy.ndim == 2:
+        elif operator is None and dtype == torch.float32 and hierarchy.ndim == 2:
             self.kernel_route = "v2d"
+        self._relax = stencils.rb_sweep if operator is None else operator.relax
+        self._residual = (stencils.poisson_residual if operator is None
+                          else operator.residual)
         coarse_shape = hierarchy.shapes[-1]
         self.coarse_direct = bool(coarse_direct) and int(
             np.prod(coarse_shape)
         ) <= _COARSE_DIRECT_MAX
         if self.coarse_direct:
-            S, int_mask = build_coarse_solver_matrix(
-                coarse_shape, hierarchy.dq[-1], self.bcs
-            )
+            # The operator's dense coarse assembly, or None: relax to ex_tol.
+            cm = (build_coarse_solver_matrix(coarse_shape, hierarchy.dq[-1], self.bcs)
+                  if operator is None
+                  else operator.coarse_matrix(coarse_shape, hierarchy.dq[-1], self.bcs))
+            self.coarse_direct = cm is not None
+        if self.coarse_direct:
+            S, int_mask = cm
             self._coarse_S = torch.as_tensor(S, dtype=dtype, device=self.device)
             self._coarse_rows = torch.as_tensor(
                 np.flatnonzero(int_mask), dtype=torch.long, device=self.device
@@ -166,7 +188,7 @@ class MGEngine:
         if route == "v2d":
             return v2d.v2d_smooth(u, rhs, dq, self.bcs, n)
         for _ in range(n):
-            u = stencils.rb_sweep(u, rhs, dq, self.bcs)
+            u = self._relax(u, rhs, dq, self.bcs)
         return u
 
     def t_smooth_residual(self, u, rhs, level: int):
@@ -196,7 +218,7 @@ class MGEngine:
         return self.t_smooth(u + cor, rhs, level)
 
     def t_residual(self, u, rhs, level: int):
-        return stencils.poisson_residual(u, rhs, self._dq[level], self.bcs)
+        return self._residual(u, rhs, self._dq[level], self.bcs)
 
     def t_restrict(self, r, level: int):
         """Restrict fine-level ``r`` at ``level`` to level+1."""
@@ -286,3 +308,21 @@ class MGEngine:
         per lane)."""
         u_new, noconv = self.t_vcycle(u, rhs, ex_tol, nmax_exact)
         return u_new, noconv, self.t_metric(u_new, u_ref)
+
+    def t_two_grid(self, u, rhs, ex_tol, nmax_exact):
+        """Two-grid correction scheme for testing (reference two_grid,
+        ndsm_multigrid_core.f90:385-410): ms pre-smooth and residual,
+        restrict, relax level 1 to ex_tol from zero, ms coarse sweeps,
+        prolong and add, ms post-smooth.  Returns ``(u, coarse_noconv)``."""
+        ul, r = self.t_smooth_residual(u, rhs, 0)
+        rhs_c = self.t_restrict(r, 0)
+        u_c = torch.zeros(tuple(self.h.shapes[1]), dtype=self.dtype, device=u.device)
+        u_c, noconv = self.t_solve_exact(u_c, rhs_c, 1, ex_tol, nmax_exact)
+        u_c = self.t_smooth(u_c, rhs_c, 1)
+        cor = self.t_prolong(u_c, 0)
+        return self.t_smooth_cor(ul, cor, rhs, 0), noconv
+
+    def t_one_grid(self, u, rhs, ex_tol, nmax_exact):
+        """Single-grid relax-to-convergence (reference one_grid,
+        ndsm_multigrid_core.f90:424-441).  Returns ``(u, noconv)``."""
+        return self.t_solve_exact(u, rhs, 0, ex_tol, nmax_exact)

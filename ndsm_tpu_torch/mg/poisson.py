@@ -25,14 +25,28 @@ The loops run on the host: every V-cycle reads its du (one device sync).
 iteration has stopped is frozen, so each lane follows its standalone
 iterate sequence.
 
-Not ported yet (ROADMAP.md Queue A): ``solve_checkpointed``,
-``history=True``, operator injection, sharding.  There is no
-kernel-failure retry: a kernel that fails to build or launch raises.
+An injected operator (mg/operator.py; ``operator=`` of ``PoissonBVP``,
+``get_poisson_bvp`` and ``solve_poisson_bvp``) solves ``operator[u] =
+rhs`` with the same loops, stopping rules and error contract: the engines
+route every sweep and residual through it, the 3D defect kernel (which
+computes the Poisson residual) is off, a singular operator pins the mean
+as all-Neumann Poisson does, and ``solve_batch`` runs lane by lane, so
+the operator never sees a lane axis (each lane follows its standalone
+iterate sequence, the JAX lane-masked semantics).
+
+``solve(history=True)`` records du per V-cycle; ``solve_checkpointed``
+runs strict one-V-cycle defect groups in chunks, writing the iterate to
+an ``.npz`` between them; ``vcycle``/``two_grid``/``one_grid`` are the
+reference's reduced drivers.  Not ported yet (ROADMAP.md Queue A):
+sharding through a ``shard_spec``.  There is no kernel-failure retry: a
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -47,7 +61,7 @@ from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg, warn
 from .engine import MGEngine
 
-__all__ = ["PoissonBVP", "get_poisson_bvp"]
+__all__ = ["PoissonBVP", "get_poisson_bvp", "solve_poisson_bvp"]
 
 _ENGINE_CACHE: BoundedCache = BoundedCache(maxsize=64)
 
@@ -62,13 +76,14 @@ _EPS32 = 32.0 * float(np.finfo(np.float32).eps)
 
 
 def _cached_engine(hierarchy, bcs, ms, du_max, dtype, device, coarse_direct=False,
-                   smoother="auto"):
-    key = (hierarchy, bcs, ms, du_max, dtype, str(device), coarse_direct, smoother)
+                   smoother="auto", operator=None):
+    key = (hierarchy, bcs, ms, du_max, dtype, str(device), coarse_direct, smoother,
+           operator)
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         eng = MGEngine(
             hierarchy, bcs, ms=ms, du_max=du_max, dtype=dtype, device=device,
-            coarse_direct=coarse_direct, smoother=smoother,
+            coarse_direct=coarse_direct, smoother=smoother, operator=operator,
         )
         _ENGINE_CACHE.put(key, eng)
     return eng
@@ -93,6 +108,8 @@ class PoissonBVP:
         ("auto" resolves by ``device``).
       device: where the solve runs: "cuda" (the default) raises without a
         CUDA device; "cpu" runs the kernels' plain PyTorch versions.
+      operator: an injected ``MGOperator`` (mg/operator.py), or None for
+        the Poisson stencil with its kernels.
     """
 
     def __init__(
@@ -101,10 +118,12 @@ class PoissonBVP:
         bcs: Sequence[Sequence[str]],
         options: Options = Options(),
         device="cuda",
+        operator=None,
     ):
         self.h = hierarchy
         self.bcs = stencils.validate_bcs(bcs, hierarchy.ndim)
         self.options = options
+        self.operator = operator
         self.device = resolve_device(device)
         self.mode = options.resolve_precision(self.device)
         if self.mode not in ("fp64", "mixed", "fp32"):
@@ -115,23 +134,26 @@ class PoissonBVP:
         coarse_direct = cs == "direct" or (cs == "auto" and self.mode != "fp64")
         self._inner = _cached_engine(
             hierarchy, self.bcs, options.ms, options.du_max, self.inner_dtype,
-            self.device, coarse_direct, options.smoother,
+            self.device, coarse_direct, options.smoother, operator,
         )
         self._outer = (
             self._inner
             if self.inner_dtype == self.outer_dtype
             else _cached_engine(
                 hierarchy, self.bcs, options.ms, options.du_max, self.outer_dtype,
-                self.device, smoother=options.smoother,
+                self.device, smoother=options.smoother, operator=operator,
             )
         )
-        self._all_neumann = stencils.is_all_neumann(self.bcs)
+        self._all_neumann = (stencils.is_all_neumann(self.bcs) if operator is None
+                             else operator.is_singular(self.bcs))
         self._inner_max = (
             max(1, int(options.mixed_inner_max)) if self.mode == "mixed" else 1
         )
-        #: True when the 3D defect runs in ops/df.py (the df semantics).
+        #: True when the 3D defect runs in ops/df.py (the df semantics); never
+        #: under an operator, whose residual that kernel does not compute.
         self.df_defect = (
             self.mode == "mixed"
+            and operator is None
             and hierarchy.ndim == 3
             and not self._all_neumann
             and options.mixed_defect != "f64"
@@ -141,13 +163,14 @@ class PoissonBVP:
     # Defect groups
     # ------------------------------------------------------------------
 
-    def _mixed_group(self, u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax):
+    def _mixed_group(self, u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax, inner_max,
+                     hist=None):
         """One float64 defect, scaled to unit max, supporting up to
         ``inner_max`` float32 V-cycles (JAX ``_mixed_group``).  Works per
         lane when ``u`` has a leading lane axis: ``it`` is then a tensor
         of per-lane cycle counts and a lane whose inner condition fails
-        is frozen.  Returns (u_new, noconv, du, ncycles), the last three
-        per lane."""
+        is frozen.  ``hist`` (one lane only) gets each inner V-cycle's du.
+        Returns (u_new, noconv, du, ncycles), the last three per lane."""
         eng64, eng32 = self._outer, self._inner
         ndim = self.h.ndim
         sdims = tuple(range(u.ndim - ndim, u.ndim))
@@ -173,11 +196,13 @@ class PoissonBVP:
 
         while True:
             cond = (k == 0) | (
-                (du_of(du_e) >= vc_tol) & (it + k < nmax) & (k < self._inner_max)
+                (du_of(du_e) >= vc_tol) & (it + k < nmax) & (k < inner_max)
             )
             if not bool(cond.any()):
                 break
             e_new, noconv, du_new = eng32.t_vcycle_du(e, r32, ex_tol_eff, nmax_exact, e)
+            if hist is not None:
+                hist.append(du_of(du_new))
             e = torch.where(bc(cond), e_new, e)
             du_e = torch.where(cond, du_new.to(torch.float32), du_e)
             k = k + cond.to(torch.long)
@@ -197,11 +222,12 @@ class PoissonBVP:
         if self.options.debug:
             debug_msg("solve_poisson_bvp", f" Solution delta: {du}")
 
-    def _solve_df(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact):
+    def _solve_df(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact, inner_max, hist=None):
         """3D mixed solve with the df semantics (JAX ``_solve_df_core``):
         the first group runs unconditionally, each later group's defect
         pass applies the previous group's correction, the final correction
-        is applied after the loop.  ``rhs=None`` is the zero-rhs form."""
+        is applied after the loop.  ``rhs=None`` is the zero-rhs form;
+        ``hist`` gets each V-cycle's du."""
         big = float(np.finfo(np.float64).max)
         if nmax < 1:  # reference DO-loop contract: no cycles, u0 back
             return u, big, 0, IERR_COVFAIL, False
@@ -213,9 +239,11 @@ class PoissonBVP:
             ex_tol_eff = max(float(ex_tol), _EPS32 * float(mx))
             e = torch.zeros_like(r32)
             du_e, k = big, 0
-            while k == 0 or (du_e >= vc_tol and it + k < nmax and k < self._inner_max):
+            while k == 0 or (du_e >= vc_tol and it + k < nmax and k < inner_max):
                 e, noconv, du_t = eng32.t_vcycle_du(e, r32, ex_tol_eff, nmax_exact, e)
                 du_e = float(du_t)
+                if hist is not None:
+                    hist.append(du_e)
                 flag = flag or noconv
                 k += 1
             it += k
@@ -226,21 +254,24 @@ class PoissonBVP:
         ierr = IERR_SUCCESS if du_e < vc_tol else IERR_COVFAIL
         return u, du_e, it, ierr, flag
 
-    def _solve_loop(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact):
+    def _solve_loop(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact, inner_max, hist=None):
         """Outer V-cycle loop (reference VCYCLE_LOOP, ndsm_poisson.f90:
-        116-141): cycle until du < vc_tol or nmax cycles (IERR_COVFAIL)."""
+        116-141): cycle until du < vc_tol or nmax cycles (IERR_COVFAIL).
+        ``hist`` gets each V-cycle's du."""
         mixed = self.mode == "mixed"
         du = float(np.finfo(_np_dtype(self.outer_dtype)).max)
         it, flag = 0, False
         while it < nmax and du >= vc_tol:
             if mixed:
                 u, nc, du_t, k = self._mixed_group(
-                    u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax
+                    u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax, inner_max, hist
                 )
                 ncyc, noconv = int(k), bool(nc)
             else:
                 u, noconv, du_t = self._inner.t_vcycle_du(u, rhs, ex_tol, nmax_exact, u)
                 ncyc = 1
+                if hist is not None:
+                    hist.append(du_t)
             du = float(du_t)
             it += ncyc
             flag = flag or noconv
@@ -264,7 +295,7 @@ class PoissonBVP:
                 break
             if self.mode == "mixed":
                 u_new, noconv, du_new, ncyc = self._mixed_group(
-                    u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax
+                    u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax, self._inner_max
                 )
             else:
                 u_new, nc, du_new = self._inner.t_vcycle_du(u, rhs, ex_tol, nmax_exact, u)
@@ -311,33 +342,45 @@ class PoissonBVP:
         zero_rhs: bool = False,
         history: bool = False,
     ) -> Tuple[torch.Tensor, SolveInfo]:
-        """Solve ``laplace(u) = rhs`` from ``u0``, whose values on Dirichlet
-        faces are held fixed.  ``zero_rhs=True`` ignores ``rhs``.  ``u0``
-        is never modified.  Returns (u, SolveInfo) with u on the device."""
-        if history:
-            raise NotImplementedError(
-                "PoissonBVP.solve(history=True) is not ported to ndsm_tpu_torch "
-                "yet (ROADMAP.md Queue A: solve_checkpointed/history)"
-            )
+        """Solve ``laplace(u) = rhs`` (``operator[u] = rhs`` under an
+        operator) from ``u0``, whose values on Dirichlet faces are held
+        fixed.  ``zero_rhs=True`` ignores ``rhs``.  ``history=True`` also
+        records du of every V-cycle in ``SolveInfo.du_history`` (the
+        reference's debug-mode "Solution delta" lines, ndsm_poisson.f90:
+        129-135; mixed defect groups give one entry per inner V-cycle)
+        without changing the iterates.  ``u0`` is never modified.  Returns
+        (u, SolveInfo) with u on the device."""
         vc_tol, ex_tol, nmax, nmax_exact = self._limits(
             vc_tol, ex_tol, ncycles_max, niterex_max
         )
         u = self._as_field(u0, "u0")
+        r = None if zero_rhs else self._as_field(rhs, "rhs")
+        hist = [] if history else None
         t0 = time.perf_counter()
-        if self.df_defect:
-            r = None if zero_rhs else self._as_field(rhs, "rhs")
-            out = self._solve_df(u, r, vc_tol, ex_tol, nmax, nmax_exact)
-        else:
-            r = torch.zeros_like(u) if zero_rhs else self._as_field(rhs, "rhs")
-            out = self._solve_loop(u, r, vc_tol, ex_tol, nmax, nmax_exact)
-        u, du, it, ierr, flag = out
+        u, du, it, ierr, flag = self._run(
+            u, r, vc_tol, ex_tol, nmax, nmax_exact, self._inner_max, hist
+        )
         _sync(self.device)
         info = SolveInfo(
             ierr=int(ierr), du_last=float(du), cycles=int(it), name=name,
             wall_time=time.perf_counter() - t0, coarse_noconv=bool(flag),
+            du_history=None if hist is None else tuple(float(v) for v in hist),
         )
         self._post_warnings([info])
         return u, info
+
+    def _run(self, u, rhs, vc_tol, ex_tol, nmax, nmax_exact, inner_max, hist):
+        """The solve loop of this configuration (``rhs=None``: zero rhs).
+        Returns (u, du, cycles, ierr, coarse_noconv)."""
+        if self.df_defect:
+            return self._solve_df(u, rhs, vc_tol, ex_tol, nmax, nmax_exact, inner_max, hist)
+        rhs = torch.zeros_like(u) if rhs is None else rhs
+        with self._held():
+            return self._solve_loop(u, rhs, vc_tol, ex_tol, nmax, nmax_exact, inner_max, hist)
+
+    def _held(self):
+        """The operator's context for one solve (``MGOperator.held``)."""
+        return contextlib.nullcontext() if self.operator is None else self.operator.held()
 
     def solve_batch(
         self,
@@ -352,11 +395,12 @@ class PoissonBVP:
     ):
         """Solve B same-configuration problems.  With a direct coarse
         solver on a 1D/2D problem the lanes run together, lane-masked;
-        otherwise (relax coarse solver, as in the JAX package, or a 3D
-        problem, whose kernels take one lane) one ``solve`` per lane.
-        Returns (list of u, list of SolveInfo)."""
+        otherwise (relax coarse solver, as in the JAX package, a 3D
+        problem, whose kernels take one lane, or an injected operator,
+        whose functions take none) one ``solve`` per lane.  Returns (list
+        of u, list of SolveInfo)."""
         names = list(names or [""] * len(u0s))
-        if not self._inner.coarse_direct or self.h.ndim == 3:
+        if not self._inner.coarse_direct or self.h.ndim == 3 or self.operator is not None:
             out = [
                 self.solve(
                     u0, rhs, vc_tol=vc_tol, ex_tol=ex_tol, ncycles_max=ncycles_max,
@@ -394,6 +438,88 @@ class PoissonBVP:
         if any(i.ierr != IERR_SUCCESS for i in infos):
             warn(_COVFAIL_WARNING)
 
+    def solve_checkpointed(
+        self,
+        u0,
+        rhs,
+        *,
+        checkpoint_path: str,
+        checkpoint_every: int = 32,
+        vc_tol: Optional[float] = None,
+        ex_tol: Optional[float] = None,
+        ncycles_max: Optional[int] = None,
+        niterex_max: Optional[int] = None,
+        name: str = "",
+    ) -> Tuple[torch.Tensor, SolveInfo]:
+        """Resumable solve: V-cycles run in chunks of ``checkpoint_every``
+        with the current iterate written atomically to ``checkpoint_path``
+        (an ``.npz`` holding ``u``, ``cycles``, ``du`` and ``shape``,
+        written as ``<path>.tmp.npz`` and then renamed over it) between
+        chunks; a solve that finds a file of its fine shape there resumes
+        from it.  The iterate sequence is independent of
+        ``checkpoint_every``: mixed mode runs the strict
+        one-V-cycle-per-defect iteration (``inner_max=1``) here, so a chunk
+        boundary can never split a defect group; fp64/fp32 run ``solve``'s
+        sequence (JAX ``solve_checkpointed``, ndsm_tpu/mg/poisson.py:907)."""
+        if int(checkpoint_every) < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        vc_tol, ex_tol, nmax, nmax_exact = self._limits(
+            vc_tol, ex_tol, ncycles_max, niterex_max
+        )
+        u = self._as_field(u0, "u0")
+        r = self._as_field(rhs, "rhs")
+        cycles, du = 0, float("inf")
+        if os.path.exists(checkpoint_path):
+            with np.load(checkpoint_path) as ck:
+                if tuple(ck["shape"]) == tuple(self.h.fine_shape):
+                    u = self._as_field(ck["u"], "checkpoint u")
+                    cycles, du = int(ck["cycles"]), float(ck["du"])
+        t0 = time.perf_counter()
+        flag = False
+        with self._held():
+            while cycles < nmax and not du < vc_tol:
+                chunk = min(int(checkpoint_every), nmax - cycles)
+                u, du, it, _, noconv = self._run(u, r, vc_tol, ex_tol, chunk, nmax_exact, 1,
+                                                 None)
+                du, cycles, flag = float(du), cycles + int(it), flag or bool(noconv)
+                # np.savez appends ".npz" to a name without it: the temporary
+                # name has the suffix, so the rename below is exact.
+                tmp = checkpoint_path + ".tmp.npz"
+                np.savez(tmp, u=u.cpu().numpy(), cycles=cycles, du=du,
+                         shape=np.asarray(self.h.fine_shape))
+                os.replace(tmp, checkpoint_path)
+        info = SolveInfo(
+            ierr=IERR_SUCCESS if du < vc_tol else IERR_COVFAIL, du_last=du, cycles=cycles,
+            name=name, wall_time=time.perf_counter() - t0, coarse_noconv=flag,
+        )
+        self._post_warnings([info])
+        return u, info
+
+    # Reduced-cycle drivers, for operator-isolation tests (reference
+    # one_grid/two_grid, ndsm_multigrid_core.f90:385-441).  Each takes and
+    # returns tensors of the inner dtype on the BVP's device.
+
+    def _reduced(self, cycle, u, rhs, ex_tol, niterex_max):
+        o = self.options
+        u, rhs = (torch.as_tensor(x, dtype=self.inner_dtype, device=self.device).contiguous()
+                  for x in (u, rhs))
+        with self._held():
+            out, _ = cycle(u, rhs, float(o.ex_tol if ex_tol is None else ex_tol),
+                           int(o.niterex_max if niterex_max is None else niterex_max))
+        return out
+
+    def vcycle(self, u, rhs, *, ex_tol=None, niterex_max=None) -> torch.Tensor:
+        """One V-cycle on ``u`` (reference v_cycle)."""
+        return self._reduced(self._inner.t_vcycle, u, rhs, ex_tol, niterex_max)
+
+    def two_grid(self, u, rhs, *, ex_tol=None, niterex_max=None) -> torch.Tensor:
+        """One two-grid cycle on levels 0 and 1 (reference two_grid)."""
+        return self._reduced(self._inner.t_two_grid, u, rhs, ex_tol, niterex_max)
+
+    def one_grid(self, u, rhs, *, ex_tol=None, niterex_max=None) -> torch.Tensor:
+        """Relax the fine grid to ``ex_tol`` (reference one_grid)."""
+        return self._reduced(self._inner.t_one_grid, u, rhs, ex_tol, niterex_max)
+
 
 _BVP_CACHE: BoundedCache = BoundedCache(maxsize=32)
 
@@ -403,6 +529,7 @@ def get_poisson_bvp(
     bcs: Sequence[Sequence[str]],
     options: Options = Options(),
     device="cuda",
+    operator=None,
 ) -> PoissonBVP:
     """Memoized PoissonBVP construction (tolerances and limits are passed
     per call, so they are not part of the key)."""
@@ -410,9 +537,51 @@ def get_poisson_bvp(
     opt_key = dataclasses.astuple(
         dataclasses.replace(options, vc_tol=0.0, ex_tol=0.0, ncycles_max=0, niterex_max=0)
     )
-    key = (hierarchy, bcs_t, opt_key, str(torch.device(device)))
+    key = (hierarchy, bcs_t, opt_key, str(torch.device(device)), operator)
     bvp = _BVP_CACHE.get(key)
     if bvp is None:
-        bvp = PoissonBVP(hierarchy, bcs_t, options, device=device)
+        bvp = PoissonBVP(hierarchy, bcs_t, options, device=device, operator=operator)
         _BVP_CACHE.put(key, bvp)
     return bvp
+
+
+def solve_poisson_bvp(
+    u0,
+    rhs,
+    meshes: Sequence[np.ndarray],
+    bcs: Sequence[Sequence[str]],
+    *,
+    ngrids: Optional[int] = None,
+    options: Options = Options(),
+    operator=None,
+    device="cuda",
+) -> Tuple[torch.Tensor, SolveInfo]:
+    """Functional one-shot Poisson solve (the reference's entry of the same
+    name, fortran/ndsm_poisson.f90:63-155).
+
+    Solves ``laplace(u) = rhs`` on the uniform per-axis mesh given by
+    ``meshes`` (one coordinate vector per array axis) with homogeneous
+    "N"/"D" conditions per face; Dirichlet faces take their (possibly
+    nonzero) values from ``u0``.  The multigrid hierarchy depth defaults to
+    the reference rule ``floor(log2(min(shape)/2))``.
+
+    ``operator`` injects a non-Poisson operator (an
+    :class:`~ndsm_tpu_torch.mg.operator.MGOperator`): the same V-cycle
+    machinery, stopping rules, precision modes, and error contract then
+    solve ``operator[u] = rhs`` — the reference's MG_RELAX/MG_RESIDUAL
+    extension point (ndsm_multigrid_core.f90:106-136).
+
+    Runs on ``device``: "cuda" (the default) raises without a CUDA device;
+    "cpu" runs the kernels' plain versions.  Returns (u, SolveInfo) with u
+    on the device.
+    """
+    hierarchy = GridHierarchy.from_mesh(meshes, ngrids=ngrids)
+    bvp = get_poisson_bvp(hierarchy, bcs, options, device=device, operator=operator)
+    return bvp.solve(
+        u0,
+        rhs,
+        vc_tol=options.vc_tol,
+        ex_tol=options.ex_tol,
+        ncycles_max=options.ncycles_max,
+        niterex_max=options.niterex_max,
+    )

@@ -77,19 +77,22 @@ def is_all_neumann(bcs: BCS) -> bool:
     return all(tuple(b) == ("N", "N") for b in bcs)
 
 
-def stencil_weights(dq, dtype: torch.dtype) -> Tuple[Tuple[float, ...], float]:
+def stencil_weights(dq, dtype: torch.dtype, shift: float = 0.0
+                    ) -> Tuple[Tuple[float, ...], float]:
     """Per-axis weights ``w_i = 1/dq_i^2`` and inverse diagonal
-    ``w0 = 1/(2 sum_i w_i)``, rounded like the JAX module: w computed in
-    float64 and cast to ``dtype``, w0 formed in ``dtype`` from the cast
-    weights (reference ndsm_optimized.f90:87-94).  Returned as Python
-    floats, each exactly representable in ``dtype``."""
+    ``w0 = 1/(2 sum_i w_i + shift)``, rounded like the JAX module: w
+    computed in float64 and cast to ``dtype``, w0 formed in ``dtype`` from
+    the cast weights (reference ndsm_optimized.f90:87-94).  ``shift`` is
+    the Helmholtz operator's c (mg/operator.py; 0 adds nothing, bit for
+    bit).  Returned as Python floats, each exactly representable in
+    ``dtype``."""
     npdt = np.float32 if dtype == torch.float32 else np.float64
     dq = np.asarray(dq, dtype=np.float64)
     w = (1.0 / (dq * dq)).astype(npdt)
     s = npdt(0.0)
     for v in w:  # sequential sum, the order XLA and numpy use for <= 3 terms
         s = npdt(s + v)
-    w0 = npdt(npdt(1.0) / (npdt(2.0) * s))
+    w0 = npdt(npdt(1.0) / (npdt(2.0) * s + npdt(shift)))
     return tuple(float(v) for v in w), float(w0)
 
 

@@ -36,7 +36,7 @@ def test_import_leaves_jax_out():
             "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build, "
             "ndsm_tpu_torch.ops.zc_sharded, ndsm_tpu_torch.ops.df_sharded, "
             "ndsm_tpu_torch.parallel.shard, ndsm_tpu_torch.parallel.collectives, "
-            "ndsm_tpu_torch.parallel.sm_engine; "
+            "ndsm_tpu_torch.parallel.sm_engine, ndsm_tpu_torch.mg.operator; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -180,11 +180,6 @@ def test_batch_components_auto_is_sequential_on_cpu():
 
 
 def test_unported_arguments_raise():
-    x = np.linspace(0, 1, 8)
-    h = ndsm_tpu_torch.GridHierarchy.from_mesh((x, x, x))
-    bvp = ndsm_tpu_torch.PoissonBVP(h, (("D", "D"),) * 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bvp.solve(np.zeros((8, 8, 8)), np.zeros((8, 8, 8)), history=True)
     for bad in ("off", "interpret"):
         with pytest.raises(ValueError):
             Options(use_pallas=bad)
