@@ -136,7 +136,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      printed; timed in turns with path 1b.  Paths 5 and 5b:
      ``ShardedPoissonBVP`` at 256^3, Ax BCs, mixed, over a z mesh of 4 and
      a (z, y) mesh of 4 x 2, held to ``PoissonBVP`` on the card (cycles
-     within 1, max|u_sh - u| <= 5e-9).
+     within 1, max|u_sh - u| <= 5e-9).  Path 5c: path 5's engine's
+     ``solve_checkpointed`` every 4 and every 32 cycles, bitwise equal to
+     each other, within 5e-9 of its strict sibling's ``solve`` (the line
+     says whether bitwise), a resume from the every-4 file running no
+     cycle; B10 and B11 launched, no plain sharded 3D route on the card.
   5. path 6: ``solve_poisson_bvp(..., device="cuda")`` without an
      operator, mixed, Ax BCs, u* = sin(pi z) sin(pi y) cos(pi x) at 129^3
      and 257^3: ierr 0, the error falls as h^2 (ratio 3.5-4.5), the warm
@@ -157,7 +161,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      error ratio 3.5-4.5, no kernel and no plain version launched during
      the warm calls (the operator route is plain tensor code), each 257^3
      call profiled once; the generic coarse assembly timed on the host.
-  6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  6. path 8: both golden tables through
+     ``ndsm_tpu_torch.examples.integration_scaling`` (--warm, mixed,
+     components batched; the max metric with default options, the mean
+     metric with --mean --strict), each written with --out and
+     digit-compared by scripts/compare_golden.py: ierr 0 and bench.py's
+     gate in every cell, the 22^3 and 220^3 max rows digit-exact; the
+     digit-exact counts, the power-law indices beside the reference's and
+     each row's warm wall printed, and a row with a differing digit run
+     again with the other ``mixed_inner_max``.  Path 8b:
+     ``examples.unit_test_2d_solve`` at its nine sizes (27 x 36 to 675 x
+     900, all-Neumann, mixed), each size's v2d plan printed: ierr 0, index
+     1.9-2.1, every row within 1e-4 relative of
+     docs/unit_test_2d_solve_r04.txt, the v2d forms launched with the
+     global route among them.  Path 9: 220^3 with the default device curl,
+     ``host_curl=True`` and ``host_curl`` with ``fetch_encoding="split16"``
+     in turns, three times each, every phase printed: host_curl's A bitwise
+     the default's, B within 1e-13 max|B| (the line says whether bitwise);
+     split16's A within max|A - f32(A)| / 32767 with the golden digits; one
+     ``output_dtype="float32"`` call.  Path 10: ``per_face=True`` at 22^3
+     and 220^3 in the gate, the one-lane kernels and the defect launched
+     and no lane form, A and B within 1e-6 / 1e-4 of path 1b's.  Then
+     ``utils.profiling``: a warm 220^3 call inside ``trace`` (the file must
+     name both phase ranges and the lane pass) and a ``Timer`` with
+     ``sync`` around three calls.
+  7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -1292,9 +1320,10 @@ def log_compact_passes(what, launches, passes, dense_passes, key):
 _CASES = {}
 
 
-def run(n, batch="auto", smoother="auto", dist=None):
+def run(n, batch="auto", smoother="auto", dist=None, gate=True, **extra):
     """One ``vector_potential`` call on the analytic case at n^3 (mixed
-    precision), held to the golden row; returns (wall s, info, A, B)."""
+    precision; ``extra`` holds further ``Options`` fields), held to the
+    golden row unless ``gate`` is False; returns (wall s, info, A, B)."""
     import numpy as np
 
     from ndsm_tpu_torch import Options, vector_potential
@@ -1309,13 +1338,13 @@ def run(n, batch="auto", smoother="auto", dist=None):
     t0 = time.perf_counter()
     ierr, A2, B2, info = vector_potential(
         x, y, z, b1, device="cuda", full_output=True, dist=dist,
-        options=Options(precision="mixed", batch_components=batch, smoother=smoother))
+        options=Options(precision="mixed", batch_components=batch, smoother=smoother, **extra))
     wall = time.perf_counter() - t0
     if ierr != 0:
         raise AssertionError(f"vector_potential {n}^3: ierr={ierr}")
     if not (np.isfinite(A2).all() and np.isfinite(B2).all()):
         raise AssertionError(f"vector_potential {n}^3: non-finite output")
-    if A2.shape != (3, n, n, n) or A2.dtype != np.float64:
+    if A2.shape != (3, n, n, n) or A2.dtype != np.dtype(extra.get("output_dtype", "float64")):
         raise AssertionError(f"vector_potential {n}^3: got {A2.shape} {A2.dtype}")
     ea = float(np.linalg.norm(A1 - A2, axis=0).max())
     eb = float(np.linalg.norm(b1 - B2, axis=0).max())
@@ -1325,6 +1354,7 @@ def run(n, batch="auto", smoother="auto", dist=None):
     phases = " ".join(f"{k}={v:.4f}" for k, v in info.phases.items())
     route = (f"batch_components={batch}, smoother={smoother}, lanes "
              f"{info.components[0].batch_size}"
+             + "".join(f", {k}={v}" for k, v in extra.items())
              + ("" if dist is None else f", dist over a {'x'.join(map(str, dist.mesh.shape))} "
                 f"{dist.axis_names} mesh"))
     digits = f"{ea:.5e} {eb:.5e}" == f"{g_ea:.5e} {g_eb:.5e}"
@@ -1333,10 +1363,10 @@ def run(n, batch="auto", smoother="auto", dist=None):
         f"exact: {digits}")
     log(f"[main] {n}^3 wall {wall:.4f} s; phases (s) {phases}; cycles {cyc}; component "
         "du " + " ".join(f"{s.name}={s.du_last:.6e}" for s in info.components))
-    if not ok or (dist is not None and not digits):
+    if gate and (not ok or (dist is not None and not digits)):
         raise AssertionError(f"vector_potential {n}^3 outside the golden gate"
                              + ("" if dist is None else " or its digits"))
-    want = 3 if batch == "auto" and dist is None else 1
+    want = 3 if batch == "auto" and dist is None and not extra.get("per_face") else 1
     if any(s.batch_size != want for s in info.components):
         raise AssertionError(f"{n}^3 {route}: expected {want} lane(s) per component solve")
     return wall, info, A2, B2
@@ -1950,8 +1980,66 @@ def phase_sharded_solves():
         if info_sh.ierr or abs(info_sh.cycles - info.cycles) > 1 or not d <= 5e-9:
             raise AssertionError(f"path {tag}: ierr {info_sh.ierr}, cycles {info_sh.cycles} / "
                                  f"{info.cycles}, max|u_sh - u| {d}")
-        del sb, u_sh
-    return launches["5"], launches["5b"]
+        del u_sh
+        if tag == "5":
+            launches["5c"] = sharded_checkpointed(sb, u0, rhs)
+        del sb
+    return launches["5"], launches["5b"], launches["5c"]
+
+
+def sharded_checkpointed(sb, u0, rhs):
+    """Path 5c: ``ShardedPoissonBVP.solve_checkpointed`` on path 5's engine,
+    every 4 and every 32 cycles into a temporary directory: the two
+    results bitwise equal, within 5e-9 of the strict sibling's ``solve``,
+    a second call on the every-4 file running no cycle; B10 and B11
+    launched (counted over the two checkpointed calls), no plain sharded
+    3D route on the card.  Returns the launches."""
+    import tempfile
+
+    import torch
+
+    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.parallel import sm_engine
+
+    strict = sb._strict_sibling()
+    strict.solve(u0, rhs)  # cold: the sibling's first solve
+    t0 = time.perf_counter()
+    u_s, info_s = strict.solve(u0, rhs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+        ops.reset_launch_counts()
+        sm_engine.reset_plain_route_counts()
+        for every in (4, 32):
+            t0 = time.perf_counter()
+            outs[every] = sb.solve_checkpointed(u0, rhs, checkpoint_every=every,
+                                                checkpoint_path=os.path.join(tmp, f"ck{every}.npz"))
+            torch.cuda.synchronize()
+            log(f"[sharded] path 5c solve_checkpointed every {every}: cycles "
+                f"{outs[every][1].cycles}, ierr {outs[every][1].ierr}, du "
+                f"{outs[every][1].du_last:.6e}, wall {time.perf_counter() - t0:.4f} s (file "
+                "writes included)")
+        launches, routes = ops.launch_counts(), sm_engine.plain_route_counts()
+        check_counts("path 5c: solve_checkpointed 256^3 over a 4 mesh", launches,
+                     ops.plain_cuda_counts(), PATH5)
+        if routes["half_sweep_3d"] or routes["residual_3d"]:
+            raise AssertionError(f"path 5c ran a plain sharded 3D route on the card: {routes}")
+        (u4, i4), (u32, i32) = outs[4], outs[32]
+        same = torch.equal(u4, u32)
+        d_s = float((u4 - u_s).abs().max())
+        log(f"[sharded] path 5c every 4 and 32 bitwise equal: {same}; against the strict "
+            f"sibling's solve ({info_s.cycles} cycles, {wall_s:.4f} s warm): max|diff| "
+            f"{d_s:.3e} (bitwise: {torch.equal(u4, u_s)})")
+        if not (same and i4.ierr == i32.ierr == 0 and i4.cycles == i32.cycles and d_s <= 5e-9):
+            raise AssertionError(f"path 5c: checkpointed results differ ({same}, {d_s})")
+        u_r, i_r = sb.solve_checkpointed(u0, rhs, checkpoint_every=4,
+                                         checkpoint_path=os.path.join(tmp, "ck4.npz"))
+        log(f"[sharded] path 5c resumed from the 4-cycle file: cycles {i_r.cycles} (was "
+            f"{i4.cycles}), u unchanged: {torch.equal(u_r, u4)}")
+        if i_r.cycles != i4.cycles or not torch.equal(u_r, u4):
+            raise AssertionError("path 5c: a resume from a converged file ran cycles")
+    return launches
 
 
 # -- paths 6, 7 and 7b: solve_poisson_bvp, its drivers and injected operators
@@ -2182,6 +2270,292 @@ def phase_operator_paths():
     return launches6
 
 
+# -- paths 8 and 8b: the golden tables and the 2D study through the port's examples
+
+# The reference's power-law indices of the max table (RESULTS.md:39-45).
+REF_INDICES = {"Ea_max": 1.999, "Ea_avg": 2.024, "Eb_max": 1.954, "Eb_avg": 2.120}
+PATH8B = ("v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+
+
+def _compare_golden(ours: str, ref: str):
+    """scripts/compare_golden.py on two table files: (its lines, the cells
+    that differ as (dx, column))."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "compare_golden.py")
+    proc = subprocess.run([sys.executable, script, ours, ref], capture_output=True, text=True,
+                          timeout=60)
+    lines = proc.stdout.strip().splitlines()
+    if not lines or "rows matched" not in lines[-1]:
+        raise AssertionError(f"compare_golden.py: {proc.stdout} {proc.stderr}")
+    # "dx=4.76190e-02 Ea_max: ours=... ref=... DIFF"
+    diffs = [(ln.split()[0][3:], ln.split()[1].rstrip(":")) for ln in lines
+             if ln.endswith("DIFF")]
+    return lines, diffs
+
+
+def phase_golden_tables():
+    """Path 8: both golden tables through
+    ``ndsm_tpu_torch.examples.integration_scaling`` on the card (--warm,
+    mixed, components batched): the max-metric table with default options,
+    the mean-metric one with --mean --strict.  Each is written with --out
+    and digit-compared with scripts/compare_golden.py against
+    examples/golden.py's table; ierr 0 and bench.py's gate in every cell,
+    the 22^3 and 220^3 max rows digit-exact.  A row with a differing digit
+    is run again with the other ``mixed_inner_max`` and its digits printed.
+    Returns the launches of the two tables."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.examples import golden
+    from ndsm_tpu_torch.examples import integration_scaling as IS
+
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, mean, strict in (("max", False, False), ("mean", True, True)):
+            opts = IS.options_for(mean=mean, precision="mixed", strict=strict)
+            ours, ref = os.path.join(tmp, f"{tag}.txt"), os.path.join(tmp, f"{tag}_ref.txt")
+            t0 = time.perf_counter()
+            rows, infos = IS.run_table(IS.SCALE_FACTORS, opts, warm=True, device="cuda",
+                                       out=ours, echo=False)
+            took = time.perf_counter() - t0
+            table = golden.TABLES[tag]
+            golden.write_table(ref, table, mean=mean, source="reference golden table")
+            lines, diffs = _compare_golden(ours, ref)
+            for ln in lines:
+                log(f"[path 8] {tag}: {ln}")
+            exact = 4 * len(table) - len(diffs)
+            log(f"[path 8] {tag}-metric table ({'--mean --strict' if mean else 'defaults'}, "
+                f"{took:.1f} s with the cold calls): {exact} of {4 * len(table)} cells "
+                f"digit-exact")
+            bad = []
+            for scale, row, info, g in zip(IS.SCALE_FACTORS, rows, infos, table):
+                n = int(scale * 22)
+                errs = [abs(a - b) / b for a, b in zip(row[1:5], g[1:5])]
+                cyc = " ".join(f"{s.name}={s.cycles}" for s in info.chi + info.components)
+                log(f"[path 8] {tag} {n}^3: {golden.format_row(row)}; warm wall {row[5]:.4f} s; "
+                    f"ierr {info.ierr}; largest |err - golden| / golden {max(errs):.2e}; "
+                    f"cycles {cyc}")
+                if info.ierr != 0 or max(errs) >= GATE:
+                    bad.append(n)
+            indices = IS.power_law_indices(rows)
+            log(f"[path 8] {tag} power-law indices: " + ", ".join(
+                f"{k} {v:.4f} (reference {REF_INDICES[k]})" for k, v in zip(IS.NAMES, indices)
+                if k in REF_INDICES))
+            if bad:
+                raise AssertionError(f"path 8 {tag}: ierr or the gate failed at {bad}")
+            if tag == "max":
+                ends = {f"{table[0][0]:.5e}", f"{table[-1][0]:.5e}"}
+                if any(dx in ends for dx, _ in diffs):
+                    raise AssertionError(f"path 8: a 22^3 or 220^3 max row is not digit-exact: "
+                                         f"{diffs}")
+            for dx in sorted({dx for dx, _ in diffs}):
+                k = next(i for i, g in enumerate(table) if f"{g[0]:.5e}" == dx)
+                scale = IS.SCALE_FACTORS[k]
+                info = infos[k]
+                log(f"[path 8] {tag} {int(scale * 22)}^3 differs in "
+                    + ", ".join(c for d, c in diffs if d == dx) + "; du_last "
+                    + " ".join(f"{s.name}={s.du_last:.6e}" for s in info.chi + info.components))
+                other = IS.options_for(mean=mean, precision="mixed", strict=not strict)
+                row2, info2 = IS.run_row(scale, other, device="cuda")
+                log(f"[path 8] {tag} {int(scale * 22)}^3 again with mixed_inner_max="
+                    f"{other.mixed_inner_max}: {golden.format_row(row2)} (golden "
+                    f"{golden.format_row(table[k])}); cycles "
+                    + " ".join(f"{s.name}={s.cycles}" for s in info2.chi + info2.components))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_counts("path 8: both golden tables", launches, ops.plain_cuda_counts(), PATH1)
+    return launches
+
+
+def phase_2d_study():
+    """Path 8b: ``ndsm_tpu_torch.examples.unit_test_2d_solve`` on the card,
+    all nine sizes (27 x 36 to 675 x 900, all-Neumann, mixed): ierr 0, the
+    power-law index 1.9-2.1, each row within 1e-4 relative of the recorded
+    TPU run (docs/unit_test_2d_solve_r04.txt); the v2d forms launched, the
+    global route among them (675 x 900), no plain version on the card.
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.examples import unit_test_2d_solve as U
+    from ndsm_tpu_torch.ops import v2d
+
+    for nx, ny in U.shapes():
+        p = v2d.v2d_plan(1, nx, ny)
+        log(f"[v2d plan] 2D study {nx}x{ny}, one lane: route {p.route}, C {p.cluster}, "
+            f"rows {p.rows}, shared {p.smem_bytes} B")
+    recorded = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                                       "unit_test_2d_solve_r04.txt"))
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        data, infos, gamma = U.main(["--data", os.path.join(tmp, "res.txt"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        launches, routes = ops.launch_counts(), ops.v2d_route_launches()
+    rel = np.abs(data[:, 1:] - recorded[:, 1:]) / recorded[:, 1:]
+    for (nx, ny), row, r, info in zip(U.shapes(), data, rel, infos):
+        log(f"[path 8b] {nx}x{ny}: Emax {row[1]:.6e} Eavg {row[2]:.6e}, cycles {info.cycles}, "
+            f"ierr {info.ierr}; relative difference from the recorded run {r[0]:.2e} / "
+            f"{r[1]:.2e}")
+    log(f"[path 8b] 2D study: power-law index {gamma:.6f}, largest relative difference "
+        f"{rel.max():.3e}, {took:.1f} s (cold calls); v2d launches by route {routes}")
+    check_counts("path 8b: unit_test_2d_solve", launches, ops.plain_cuda_counts(), PATH8B)
+    if any(i.ierr for i in infos) or not 1.9 <= gamma <= 2.1 or not rel.max() <= 1e-4:
+        raise AssertionError(f"path 8b: ierr {[i.ierr for i in infos]}, index {gamma}, "
+                             f"relative difference {rel.max()}")
+    if not routes["global"]:
+        raise AssertionError(f"path 8b: the global v2d route never launched: {routes}")
+    return launches
+
+
+# -- path 9: host_curl and split16; path 10: per_face; profiling
+
+HOST_CURL = {"device curl": {}, "host_curl": {"host_curl": True},
+             "host_curl+split16": {"host_curl": True, "fetch_encoding": "split16"}}
+
+
+def phase_host_curl():
+    """Path 9: ``vector_potential`` at 220^3, mixed, components batched,
+    three ways in turns, three times each: the default (B = curl(A) on the
+    card, A and B copied), ``host_curl=True`` (A alone copied, in slabs
+    into pinned buffers, B its curl on the host) and ``host_curl`` with
+    ``fetch_encoding="split16"``.  A of host_curl bitwise the default's, B
+    within 1e-13 max|B|; split16's A within max|A - f32(A)| / 32767 with
+    the golden digits exact; one call with ``output_dtype="float32"``.
+    Returns the launches of a counted host_curl call."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+
+    for kw in HOST_CURL.values():
+        run(220, **kw)  # cold: the engines are warm, the host buffers not
+    ops.reset_launch_counts()
+    run(220, **HOST_CURL["host_curl"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_counts("path 9: 220^3 warm, host_curl", launches, ops.plain_cuda_counts(), PATH1)
+    _, _, A_d, B_d = run(220)
+    bmax = float(np.abs(B_d).max())
+    split_bound = float(np.abs(A_d - A_d.astype(np.float32).astype(np.float64)).max()) / 32767
+    turns = {k: [] for k in HOST_CURL}
+    for rep in range(3):
+        for tag, kw in HOST_CURL.items():
+            wall, info, A, B = run(220, **kw)
+            da, db = float(np.abs(A - A_d).max()), float(np.abs(B - B_d).max())
+            turns[tag].append((wall, info.phases))
+            log(f"[path 9] {tag} call {rep + 1}: wall {wall:.4f} s; " + " ".join(
+                f"{k}={v:.4f}" for k, v in info.phases.items()) + f"; max|A - A_dev| {da:.3e} "
+                f"(bitwise {np.array_equal(A, A_d)}), max|B - B_dev| {db:.3e} (bitwise "
+                f"{np.array_equal(B, B_d)})")
+            if tag == "host_curl" and (not np.array_equal(A, A_d) or not db <= 1e-13 * bmax):
+                raise AssertionError(f"path 9 host_curl: A differs or max|dB| {db} > 1e-13 "
+                                     f"* {bmax}")
+            if tag == "host_curl+split16":
+                ea = float(np.linalg.norm(_CASES[220][3] - A, axis=0).max())
+                digits = f"{ea:.5e}" == f"{GOLDEN[220][0]:.5e}"
+                if not da <= split_bound or not digits:
+                    raise AssertionError(f"path 9 split16: max|dA| {da} > {split_bound} or "
+                                         f"Ea_max {ea:.5e} not the golden digits")
+            del A, B
+    for tag, tv in turns.items():
+        keys = [k for k in ("post", "host_alloc", "slab_split", "fetch", "curl")
+                if k in tv[0][1]]
+        log(f"[path 9] {tag} in turns: wall " + " ".join(f"{w:.4f}" for w, _ in tv) + " s; "
+            + "; ".join(f"{k} " + " ".join(f"{ph[k]:.4f}" for _, ph in tv) for k in keys))
+    log(f"[path 9] split16 bound max|A - f32(A)| / 32767 = {split_bound:.3e}")
+    # float32 outputs: B is the curl of the float32 A, whose rounding the
+    # differences carry (eps32 |A| / h): outside the golden gate at 220^3
+    _, info32, A32, B32 = run(220, gate=False, host_curl=True, output_dtype="float32")
+    d32 = float(np.abs(A32 - A_d).max())
+    log(f"[path 9] host_curl, output_dtype=float32: {A32.dtype}, max|A32 - A_dev| {d32:.3e}, "
+        f"max|B32 - B_dev| {float(np.abs(B32 - B_d).max()):.3e}; phases " + " ".join(
+            f"{k}={v:.4f}" for k, v in info32.phases.items()))
+    if A32.dtype != np.float32 or B32.dtype != np.float32 or not d32 <= 1e-6 * float(
+            np.abs(A_d).max()):
+        raise AssertionError(f"path 9 float32: {A32.dtype} {B32.dtype}, max|dA| {d32}")
+    return launches
+
+
+def phase_per_face():
+    """Path 10: ``per_face=True`` at 22^3 and 220^3, mixed: 18 component
+    solves one after the other on the one-lane kernels and the defect, no
+    lane form; both sizes in bench.py's gate; at 220^3 A within 1e-6 and B
+    within 1e-4 of path 1b's, the warm wall beside path 1b's.  Returns the
+    launches of the warm 220^3 call."""
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch import ops
+
+    run(22, per_face=True)
+    run(220, per_face=True)  # cold: first use of the one-face solves
+    ops.reset_launch_counts()
+    wall, info, A_pf, B_pf = run(220, per_face=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lanes = ("fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
+             "fused_smooth_cor_3d_batched")
+    check_counts("path 10: 220^3 warm, per_face", launches, ops.plain_cuda_counts(), PATH1B,
+                 never=lanes)
+    wall_b, _, A_b, B_b = run(220, "off")
+    da, db = float(np.abs(A_pf - A_b).max()), float(np.abs(B_pf - B_b).max())
+    log(f"[path 10] per_face 220^3: {len(info.components)} component solves, warm wall "
+        f"{wall:.4f} s (path 1b {wall_b:.4f} s), solve3d {info.phases['solve3d']:.4f} s; "
+        f"max|A_pf - A_1b| {da:.3e}, max|B_pf - B_1b| {db:.3e}; cycles "
+        + " ".join(f"{s.name}={s.cycles}" for s in info.components))
+    if len(info.components) != 18 or not da <= 1e-6 or not db <= 1e-4:
+        raise AssertionError(f"path 10: {len(info.components)} solves, max|dA| {da}, "
+                             f"max|dB| {db}")
+    return launches
+
+
+def phase_profiling():
+    """``utils.profiling``: one warm path-1 220^3 call inside
+    ``profiling.trace``, whose trace file must name the chi and solve3d
+    ranges and the lane pass; a ``Timer`` with ``sync`` around three calls
+    of ``compute_vector_potential``."""
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from ndsm_tpu_torch import Options, compute_vector_potential
+    from ndsm_tpu_torch.potential.vector_potential import CHI_RANGE, SOLVE3D_RANGE
+    from ndsm_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            run(220)
+        took = time.perf_counter() - t0
+        files = glob.glob(os.path.join(tmp, "*.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        found = {k: k in text for k in (CHI_RANGE, SOLVE3D_RANGE, "lane_pass")}
+        log(f"[profiling] trace of a warm 220^3 call ({took:.2f} s with the export): "
+            f"{[os.path.basename(f) for f in files]}, {len(text) / 2**20:.1f} MiB; names "
+            f"{found}")
+        if not all(found.values()):
+            raise AssertionError(f"profiling.trace: {files} lacks a name: {found}")
+    x, y, z, _, b1 = _CASES[220]
+    timer = profiling.Timer()
+    for _ in range(3):
+        out = []
+        with timer.phase("compute_vector_potential 220^3", sync=out):
+            out.extend(compute_vector_potential((x, y, z), b1, Options(precision="mixed"),
+                                                device="cuda")[1:3])
+        if not np.isfinite(out[0][0, 1, 1, 1].item()):
+            raise AssertionError("profiling: non-finite A")
+    log("[profiling] Timer, sync=[A, B]: " + timer.report())
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2203,8 +2577,13 @@ def main() -> int:
     path1, path1b, path3, path3b, ref1b = phase_main_path()
     path2 = phase_neumann_3d()
     path4, path4b = phase_dist_paths(ref1b)
-    path5, path5b = phase_sharded_solves()
+    path5, path5b, path5c = phase_sharded_solves()
     path6 = phase_operator_paths()
+    path8 = phase_golden_tables()
+    path8b = phase_2d_study()
+    path9 = phase_host_curl()
+    path10 = phase_per_face()
+    phase_profiling()
     paths = (
         (PATH1, path1, "vector_potential 220^3 mixed (components batched)"),
         (PATH1B, path1b, "vector_potential 220^3 mixed, batch_components=off"),
@@ -2219,6 +2598,12 @@ def main() -> int:
         (PATH5B, path5b, "ShardedPoissonBVP 256^3 Ax mixed over a 4 x 2 (z, y) mesh on one "
                          "card"),
         (PATH6, path6, "solve_poisson_bvp 257^3 Ax mixed"),
+        (PATH1, path8, "both golden tables, integration_scaling --warm, 22^3-220^3"),
+        (PATH8B, path8b, "unit_test_2d_solve, 27x36-675x900 mixed"),
+        (PATH1, path9, "vector_potential 220^3 mixed, host_curl"),
+        (PATH1B, path10, "vector_potential 220^3 mixed, per_face"),
+        (PATH5, path5c, "ShardedPoissonBVP.solve_checkpointed 256^3 Ax mixed over 4 shards, "
+                        "every 4 and 32"),
     )
     kernels = []
     for key, _, _, replaces, source in ops.KERNELS:

@@ -14,6 +14,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .options import Options
 from .potential.vector_potential import compute_vector_potential
@@ -48,7 +49,10 @@ def vector_potential(
     Returns (ierr, A, B) with A, B numpy arrays of shape (3, nz, ny, nx)
     (float64 unless ``options.output_dtype`` says float32), plus the
     diagnostics record when ``full_output``; its ``phases`` gain a
-    "fetch" entry, the copy of A and B to the host.  ``options`` carries
+    "fetch" entry, the copy of A and B to the host (with
+    ``Options.host_curl``, the pipeline's own "host_alloc", "slab_split",
+    "fetch" and "curl": A alone is copied and B is its curl taken on the
+    host).  ``options`` carries
     what the signature does not name, such as ``batch_components`` and
     ``smoother`` ("compact": the component solves smooth on colour-split
     state, with the same iterates; see ``Options``).
@@ -77,11 +81,12 @@ def vector_potential(
     ierr, A, B, info = compute_vector_potential(
         (x, y, z), np.asarray(b), options, device=device, dist=dist
     )
-    t0 = time.perf_counter()
-    A = A.cpu().numpy()
-    B = B.cpu().numpy()
-    if info.phases is not None:
-        info.phases["fetch"] = time.perf_counter() - t0
+    if isinstance(A, torch.Tensor):  # not the host-curl pipeline: copy A and B
+        t0 = time.perf_counter()
+        A = A.cpu().numpy()
+        B = B.cpu().numpy()
+        if info.phases is not None:
+            info.phases["fetch"] = time.perf_counter() - t0
     if full_output:
         return ierr, A, B, info
     return ierr, A, B

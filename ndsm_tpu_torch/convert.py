@@ -23,8 +23,8 @@ __all__ = ["options_from_reference", "hierarchy_from_reference"]
 
 def options_from_reference(d: Mapping) -> Options:
     """The port's ``Options`` from ``dataclasses.asdict`` of an
-    ``ndsm_tpu.Options``.  Unknown keys raise ``TypeError``; values whose
-    feature is not ported raise ``NotImplementedError``."""
+    ``ndsm_tpu.Options``.  Unknown keys raise ``TypeError``; a value the
+    port has no switch for (``use_pallas="off"``) raises ``ValueError``."""
     names = {f.name for f in dataclasses.fields(Options)}
     extra = set(d) - names
     if extra:

@@ -98,6 +98,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+
+def write_checkpoint(path: str, u: np.ndarray, cycles: int, du: float, shape) -> None:
+    """Write a solve's state atomically: an ``.npz`` holding ``u``,
+    ``cycles``, ``du`` and ``shape``, written as ``<path>.tmp.npz`` and
+    then renamed over ``path`` (``np.savez`` appends ".npz" to a name
+    without it; the temporary name has the suffix, so the rename is
+    exact)."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, u=u, cycles=cycles, du=du, shape=np.asarray(shape))
+    os.replace(tmp, path)
+
+
+def read_checkpoint(path: str, shape) -> Optional[Tuple[np.ndarray, int, float]]:
+    """(u, cycles, du) from a file of ``write_checkpoint`` whose shape is
+    ``shape``, or None when there is no file or it holds another shape."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as ck:
+        if tuple(ck["shape"]) != tuple(shape):
+            return None
+        return ck["u"], int(ck["cycles"]), float(ck["du"])
+
 class PoissonBVP:
     """A reusable handle for one Poisson BVP configuration on one device.
 
@@ -469,11 +491,10 @@ class PoissonBVP:
         u = self._as_field(u0, "u0")
         r = self._as_field(rhs, "rhs")
         cycles, du = 0, float("inf")
-        if os.path.exists(checkpoint_path):
-            with np.load(checkpoint_path) as ck:
-                if tuple(ck["shape"]) == tuple(self.h.fine_shape):
-                    u = self._as_field(ck["u"], "checkpoint u")
-                    cycles, du = int(ck["cycles"]), float(ck["du"])
+        ck = read_checkpoint(checkpoint_path, self.h.fine_shape)
+        if ck is not None:
+            u = self._as_field(ck[0], "checkpoint u")
+            cycles, du = ck[1], ck[2]
         t0 = time.perf_counter()
         flag = False
         with self._held():
@@ -482,12 +503,8 @@ class PoissonBVP:
                 u, du, it, _, noconv = self._run(u, r, vc_tol, ex_tol, chunk, nmax_exact, 1,
                                                  None)
                 du, cycles, flag = float(du), cycles + int(it), flag or bool(noconv)
-                # np.savez appends ".npz" to a name without it: the temporary
-                # name has the suffix, so the rename below is exact.
-                tmp = checkpoint_path + ".tmp.npz"
-                np.savez(tmp, u=u.cpu().numpy(), cycles=cycles, du=du,
-                         shape=np.asarray(self.h.fine_shape))
-                os.replace(tmp, checkpoint_path)
+                write_checkpoint(checkpoint_path, u.cpu().numpy(), cycles, du,
+                                 self.h.fine_shape)
         info = SolveInfo(
             ierr=IERR_SUCCESS if du < vc_tol else IERR_COVFAIL, du_last=du, cycles=cycles,
             name=name, wall_time=time.perf_counter() - t0, coarse_noconv=flag,

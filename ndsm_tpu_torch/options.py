@@ -1,15 +1,12 @@
 """Typed options and result records (port of ``ndsm_tpu/options.py``).
 
 Same fields and the same defaults as the JAX package, so one
-configuration can drive both (``convert.options_from_reference``).  Two
-things differ:
-
-  * ``resolve_precision`` keys on a torch device instead of the JAX
-    platform: "auto" is "mixed" on a CUDA device and "fp64" on the CPU.
-  * Fields whose feature the port does not have yet raise
-    ``NotImplementedError`` at construction when set to a non-default
-    value, naming the ROADMAP.md item that will bring them.  The port
-    never accepts an option it would silently ignore.
+configuration can drive both (``convert.options_from_reference``).
+Every field and value that ``ndsm_tpu.Options`` accepts is accepted here.
+``resolve_precision`` keys on a torch device instead of the JAX platform:
+"auto" is "mixed" on a CUDA device and "fp64" on the CPU.  Values the port
+has no meaning for raise ``ValueError``; it never accepts an option it
+would silently ignore.
 """
 
 from __future__ import annotations
@@ -23,15 +20,6 @@ IERR_COVFAIL = 1  #: V-cycle iteration hit ncycles_max without du < vc_tol
 #: invalid mesh (< 2 points along an axis, or non-uniform spacing);
 #: returned by vector_potential with A = 0 and B = the input b.
 IERR_BADMESH = 2
-
-#: Non-default values that the port rejects, with the ROADMAP.md item
-#: that ports the feature.
-_NOT_PORTED = {
-    "per_face": (False, "Queue A: per_face"),
-    "host_curl": (False, "Queue A: host_curl is a TPU-tunnel download pipeline"),
-    "fetch_encoding": ("f64", "Queue A: fetch_encoding belongs to the host-curl pipeline"),
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Options:
@@ -69,6 +57,32 @@ class Options:
         point a lane) fits 85% of the card's memory (JAX's rule, whose
         kernel-coverage probe has no counterpart: the port's kernels take
         every shape), and runs them one after the other on the CPU.
+      host_curl: compute B = curl(A) on the host (numpy, ``ops/deriv.
+        curl_np_into``) from the A that is copied to the host anyway,
+        instead of on the device: the same expressions, differenced in
+        float64 for both output dtypes, so B agrees with the device curl
+        to ~1e-14 relative, and half as many bytes cross PCIe.  The copy
+        runs in z slabs into pinned host buffers on a side stream while a
+        small thread pool takes the curl of each slab whose neighbours
+        have landed.  Honoured only with ``flux_correction_order == 0``
+        (where B is a function of the returned A alone) and without
+        ``dist``; otherwise B comes from the device path.  Off by
+        default: whether it pays depends on the host's PCIe link against
+        its memory bandwidth and cores.  With float32 outputs B is the
+        curl of the float32 A (as in JAX), so it carries A's rounding
+        divided by h, which at the finest golden size shows in Eb_max.
+      fetch_encoding: the wire format of the host-curl copy of float64
+        outputs.  "split16" ships float32 plus an int16 fixed-point
+        correction (6 bytes a point instead of 8), reconstructed on the
+        host with an error of at most max|A - f32(A)| / 32767; it applies
+        from 16 MB of output up (``vector_potential.SPLIT16_MIN_MB``),
+        and raises if the encoding fails.  Any other value, "f64"
+        included, copies the raw array.  Ignored for float32 outputs and
+        on the device-curl path.  Not validated, as in the JAX package.
+      per_face: solve the 3D problems one face at a time and sum them
+        (the reference's IOPT_FACE1 path, dead code there, quirk Q1): 18
+        component solves, one after the other, named ``A{x,y,z}_face{f}``.
+        Never batched; under ``dist`` each runs on the sharded engine.
     """
 
     ms: int = 5
@@ -94,14 +108,6 @@ class Options:
     reference_flux_quirk: bool = False
 
     def __post_init__(self):
-        for name, (ok, item) in _NOT_PORTED.items():
-            val = getattr(self, name)
-            allowed = ok if isinstance(ok, tuple) else (ok,)
-            if val not in allowed:
-                raise NotImplementedError(
-                    f"Options.{name}={val!r} is not ported to ndsm_tpu_torch "
-                    f"yet (ROADMAP.md {item})"
-                )
         if self.use_pallas not in ("auto", "on"):
             raise ValueError(
                 f"use_pallas={self.use_pallas!r}: the port has no switch that "

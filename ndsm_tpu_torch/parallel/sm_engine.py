@@ -56,12 +56,14 @@ only its pending correction; otherwise the scaled float64 defect of
 The loops run on the host and read each V-cycle's metric (one device
 synchronisation), as PoissonBVP does.  ``make_sharded_sweep`` and
 ``make_sharded_residual`` give the plain sharded sweep and residual of one
-level on their own, over the same primitives (``ShardStencil``).  Not
-ported (ROADMAP.md Queue A): ``solve_checkpointed``.
+level on their own, over the same primitives (``ShardStencil``).
+``solve_checkpointed`` runs the strict sibling's loops in chunks and
+writes the gathered iterate between them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -69,7 +71,7 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy
-from ..mg.poisson import PoissonBVP, _cached_engine
+from ..mg.poisson import PoissonBVP, _cached_engine, read_checkpoint, write_checkpoint
 from ..ops import df_sharded, stencils, zc_sharded
 from ..ops.transfer import (
     apply_axis_matrices,
@@ -400,6 +402,7 @@ class ShardedPoissonBVP(ShardStencil):
             and not self._all_neumann
             and options.mixed_defect != "f64"
         )
+        self._strict_bvp: Optional["ShardedPoissonBVP"] = None
 
     def _t(self, m: np.ndarray, device) -> torch.Tensor:
         return torch.as_tensor(m, dtype=self.inner_dtype, device=device)
@@ -725,6 +728,65 @@ class ShardedPoissonBVP(ShardStencil):
         self._sync()
         info = SolveInfo(ierr=int(ierr), du_last=float(du), cycles=int(it), name=name,
                          wall_time=time.perf_counter() - t0, coarse_noconv=bool(flag))
+        PoissonBVP._post_warnings([info])
+        return u, info
+
+    def _strict_sibling(self) -> "ShardedPoissonBVP":
+        """This configuration with ``mixed_inner_max=1`` (one V-cycle a
+        defect), on the same mesh, axes and ``min_rows_per_shard``, built
+        once; ``self`` when the solve is not mixed or is strict already.
+        Its iterate sequence does not depend on where a checkpoint chunk
+        ends (JAX ``_strict_sibling``)."""
+        if self.mode != "mixed" or self._inner_max == 1:
+            return self
+        if self._strict_bvp is None:
+            self._strict_bvp = ShardedPoissonBVP(
+                self.h, self.bcs, dataclasses.replace(self.options, mixed_inner_max=1),
+                mesh=self.mesh, axis_names=self.names,
+                min_rows_per_shard=self.min_rows_per_shard,
+            )
+        return self._strict_bvp
+
+    def solve_checkpointed(self, u0, rhs, *, checkpoint_path: str, checkpoint_every: int = 32,
+                           name: str = "") -> Tuple[torch.Tensor, SolveInfo]:
+        """Resumable sharded solve (JAX ``ShardedPoissonBVP.
+        solve_checkpointed``): V-cycles run in chunks of
+        ``checkpoint_every`` through the strict sibling's loops, and
+        between chunks the global iterate is gathered and written
+        atomically to ``checkpoint_path`` (``mg.poisson.write_checkpoint``:
+        ``u``, ``cycles``, ``du``, ``shape``); a solve that finds a file of
+        its fine shape there resumes from it.  The iterates do not depend
+        on ``checkpoint_every``.  Returns (u, SolveInfo) with u gathered
+        on the root device.
+
+        One process drives the mesh, so it gathers and writes; the
+        multi-process form (a global array built from per-process files,
+        and process 0 writing) waits for the multi-process layer."""
+        if int(checkpoint_every) < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        sb = self._strict_sibling()
+        vc_tol, ex_tol, nmax, nmax_exact = sb._limits()
+        shape = sb.h.fine_shape
+        u, cycles, du = u0, 0, float("inf")
+        ck = read_checkpoint(checkpoint_path, shape)
+        if ck is not None:
+            u, cycles, du = ck
+        u = sb._split(u, "u0")
+        r = sb._split(rhs, "rhs")
+        loop = sb._solve_df if sb.df_defect else sb._loop
+        t0 = time.perf_counter()
+        flag = False
+        while cycles < nmax and not du < vc_tol:
+            chunk = min(int(checkpoint_every), nmax - cycles)
+            u, du_j, it, _, noconv = loop(u, r, vc_tol, ex_tol, chunk, nmax_exact)
+            du, cycles, flag = float(du_j), cycles + int(it), flag or bool(noconv)
+            write_checkpoint(checkpoint_path, C.unshard(u, sb.devices, 0, sb.grid).cpu().numpy(),
+                             cycles, du, shape)
+        u = C.unshard(u, sb.devices, 0, sb.grid)
+        sb._sync()
+        info = SolveInfo(ierr=IERR_SUCCESS if du < vc_tol else IERR_COVFAIL, du_last=du,
+                         cycles=cycles, name=name, wall_time=time.perf_counter() - t0,
+                         coarse_noconv=flag)
         PoissonBVP._post_warnings([info])
         return u, info
 

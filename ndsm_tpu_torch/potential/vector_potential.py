@@ -35,16 +35,27 @@ y, and the 2D chi faces z alone, on the mesh's z line at y index 0 (the
 other lines would hold copies, which one controller need not compute).
 The mesh's devices must be of ``device``'s type.
 
-Everything after the face extraction stays on the device; the API copies
-A and B to the host at the end.  Not ported yet (ROADMAP.md Queue A):
-the per-face superposition and the host-curl download pipeline.
+``Options.per_face`` solves the 3D problems one face at a time, the
+tangential data of that face alone, and sums them: 18 component solves,
+one after the other (never batched), each under ``dist`` on the sharded
+engine (JAX ``vector_potential.py:449-452``).
+
+Everything after the face extraction stays on the device, and the API
+copies A and B to the host at the end, unless ``Options.host_curl`` says
+otherwise (with ``flux_correction_order == 0`` and no ``dist``): then only
+A is copied, in z slabs into pinned host buffers on a side stream, and B
+is its curl taken on the host slab by slab while later slabs are still
+in flight (``_fetch_and_curl``); ``fetch_encoding="split16"`` ships large
+float64 outputs as float32 plus an int16 correction.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import threading
 import time
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +63,7 @@ import torch
 from ..grids import GridHierarchy, mesh_uniformity_error
 from ..mg.batched import MultiBCSolver
 from ..mg.poisson import get_poisson_bvp
-from ..ops.deriv import curl
+from ..ops.deriv import curl, curl_np_into
 from ..ops.reduce import trapz_2d
 from ..options import IERR_BADMESH, Options, VectorPotentialInfo
 from ..parallel.sm_engine import ShardedPoissonBVP, seam_of
@@ -80,6 +91,18 @@ _DIST_BVP_CACHE: BoundedCache = BoundedCache(maxsize=32)
 #: temporaries), as in the JAX package's rule.
 _BATCH_BYTES_PER_POINT = 48.0
 
+#: ``fetch_encoding="split16"`` applies to float64 outputs of at least this
+#: many MB (1e6 bytes); below it the encoding's fixed cost outweighs the
+#: bytes it saves (the JAX package's NDSM_TPU_SPLIT16_MIN_MB default).
+SPLIT16_MIN_MB = 16.0
+#: The host-curl copy cuts each component into at most FETCH_SLABS z
+#: slabs, one per FETCH_SLAB_MB of output and at least 3 planes a slab (the
+#: one-sided z stencils at the faces span 3 planes).
+FETCH_SLABS = 8
+FETCH_SLAB_MB = 8.0
+#: Threads of the host curl (and of the split16 reconstruction).
+CURL_WORKERS = 3
+
 
 def _dbg(options: Options, msg: str) -> None:
     if options.debug:
@@ -106,9 +129,10 @@ def _phase_pre(bn, spacings, areas):
     return rhs, phi
 
 
-def _phase_at_u0(chi, hs, signs, vol_shape, dtype, device):
+def _phase_at_u0(chi, hs, signs, vol_shape, dtype, device, active_face: Optional[int] = None):
     """At = -grad(chi) x n on every face, scattered into the three
-    component initial guesses (their Dirichlet data)."""
+    component initial guesses (their Dirichlet data); with ``active_face``
+    only that face's data is scattered (``Options.per_face``)."""
     At1, At2 = [], []
     for f in range(6):
         h1, h2 = hs[f]
@@ -121,7 +145,7 @@ def _phase_at_u0(chi, hs, signs, vol_shape, dtype, device):
     for comp in range(3):
         u0 = torch.zeros(vol_shape, dtype=dtype, device=device)
         for f in range(6):
-            if F.FACE_COMP[f] == comp:
+            if F.FACE_COMP[f] == comp or active_face not in (None, f):
                 continue
             slot = F.face_at_component(f, comp)
             u0[F.face_volume_index(f, vol_shape)] = At1[f] if slot == 1 else At2[f]
@@ -181,6 +205,138 @@ def _phase_post(A, phi, xs, ys, zs, Lq, dq, order, out_dtype):
     return A.to(out_dtype), B.to(out_dtype)
 
 
+def _phase_post_acorr(A, phi, xs, ys, zs, Lq, out_dtype):
+    """The order-0 flux-balance A correction without the curl, then the
+    cast to the output dtype: the device side of ``Options.host_curl``,
+    after which B = curl(A) is a function of this A alone (JAX
+    ``_phase_post_acorr``)."""
+    _, A = _add_flux_balance_fields((xs, ys, zs), Lq, phi, None, A)
+    return A.to(out_dtype)
+
+
+def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.ndarray]:
+    """Copy A (3, nz, ny, nx) to the host in z slabs and take B = curl(A)
+    there, slab by slab as each slab's neighbourhood lands (JAX
+    ``_fetch_and_curl_pipelined``).  Returns numpy (A, B) of A's dtype.
+
+    On a CUDA device every slab is copied, component by component and
+    slab after slab, into pinned host buffers on a side stream, all
+    copies enqueued at once; the host waits on each slab's event in turn,
+    and a pool of ``CURL_WORKERS`` threads runs ``curl_np_into`` on each
+    half of slab j once slabs j - 1 .. j + 1 of all three components have
+    landed, while the later slabs still copy.  On the CPU the same
+    function copies the slabs on the host.  Phases marked: "host_alloc"
+    (the host buffers), "slab_split" (the split16 encoding on the
+    device), "fetch" (every slab on the host) and "curl" (the last curl).
+
+    ``encoding="split16"`` with float64 A of at least ``SPLIT16_MIN_MB``:
+    the device computes hi = f32(A), corr = A - f64(hi), s = max|corr|
+    and q = round(corr * 32767 / s) as int16 (scale 0 when s = 0), the
+    slabs of hi and q cross (6 bytes a point instead of 8), and the host
+    rebuilds hi + q * (s / 32767), within max|A - f32(A)| / 32767 of A.
+    A failure of the encoding raises; nothing falls back to the raw copy.
+
+    Left out of the JAX pipeline: its several concurrent download streams
+    (``NDSM_TPU_FETCH_STREAMS``), which served a network relay that capped
+    each stream's rate.  Copies to the host share the one PCIe link, so
+    more streams add no bandwidth: one side stream carries every slab.
+    The returned A of the raw copy is a view of its pinned buffer, which
+    it keeps alive."""
+    dev = A.device
+    cuda = dev.type == "cuda"
+    nz = int(A.shape[1])
+    total_mb = A.numel() * A.element_size() / 1e6
+    nslab = max(1, min(FETCH_SLABS, nz // 3, int(total_mb / FETCH_SLAB_MB)))
+    bounds = [(k * nz) // nslab for k in range(nslab)] + [nz]
+    tasks = [(i, k) for k in range(nslab) for i in range(3)]
+    split16 = encoding == "split16" and A.dtype == torch.float64 and total_mb >= SPLIT16_MIN_MB
+
+    # host buffers: what crosses is pinned on a CUDA device
+    shape = tuple(A.shape)
+    wire = (torch.float32, torch.int16) if split16 else (A.dtype,)
+    if cuda:
+        pinned = [torch.empty(shape, dtype=d, pin_memory=True) for d in wire]
+    host = np.empty(shape, dtype=out_dtype) if split16 or not cuda else pinned[0].numpy()
+    B = np.empty(shape, dtype=host.dtype)
+    mark("host_alloc")
+
+    inv_scale = 0.0
+    if split16:
+        hi = A.to(torch.float32)
+        corr = A - hi.to(torch.float64)
+        s = torch.max(torch.abs(corr))
+        scale = torch.where(s > 0, 32767.0 / s, torch.zeros_like(s))
+        src = (hi, torch.round(corr * scale).to(torch.int16))
+        del corr
+        inv_scale = float(s) / 32767.0
+    else:
+        src = (A,)
+    mark("slab_split")
+
+    events = {}
+    if cuda:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for i, k in tasks:
+                z = slice(bounds[k], bounds[k + 1])
+                for a, p in zip(src, pinned):
+                    p[i, z].copy_(a[i, z], non_blocking=True)
+                events[(i, k)] = torch.cuda.Event()
+                events[(i, k)].record(side)
+        wire_np = [p.numpy() for p in pinned]
+    else:
+        wire_np = [a.numpy() for a in src]
+
+    done = np.zeros((3, nslab), dtype=bool)
+    curled = np.zeros(nslab, dtype=bool)
+    lock = threading.Lock()
+    curl_futs = []
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=CURL_WORKERS)
+
+    def ready(j):
+        return done[:, max(0, j - 1): j + 2].all()
+
+    def land(i, k):
+        """Slab (i, k) is on the host: finish it, then start every curl
+        slab whose neighbourhood is now complete (two halves each)."""
+        z = slice(bounds[k], bounds[k + 1])
+        if split16:
+            host[i, z] = wire_np[0][i, z] + wire_np[1][i, z] * inv_scale
+        elif not cuda:
+            host[i, z] = wire_np[0][i, z]
+        with lock:
+            done[i, k] = True
+            for j in range(max(0, k - 1), min(nslab, k + 2)):
+                if not curled[j] and ready(j):
+                    curled[j] = True
+                    z0, z1 = bounds[j], bounds[j + 1]
+                    zm = (z0 + z1) // 2
+                    curl_futs.extend(pool.submit(curl_np_into, host, dq, B, a, b)
+                                     for a, b in ((z0, zm), (zm, z1)) if b > a)
+
+    try:
+        rebuilt = []
+        for t in tasks:
+            if cuda:
+                events[t].synchronize()
+            if split16:
+                rebuilt.append(pool.submit(land, *t))
+            else:
+                land(*t)
+        for f in rebuilt:
+            f.result()
+        mark("fetch")
+        for f in curl_futs:
+            f.result()
+    finally:
+        pool.shutdown(wait=True)
+    if not curled.all():
+        raise AssertionError("the host curl missed a slab")
+    mark("curl")
+    return host, B
+
+
 def _batch_components(options: Options, mode: str, shape, dev: torch.device) -> bool:
     """Whether the three component solves run as one ``MultiBCSolver``
     solve: JAX's rule (ndsm_tpu/potential/vector_potential.py:395-448)
@@ -218,9 +374,11 @@ def _dist_bvp(hierarchy, bcs, options: Options, dist):
     return bvp or None
 
 
-def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev, dist=None):
+def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev, dist=None,
+                      active_face: Optional[int] = None):
     """The three component solves one after the other (``PoissonBVP``, or
     the sharded engine under ``dist``); ``u0s`` is emptied as they go.
+    ``active_face`` names the solves of one face (``Options.per_face``).
     Returns (A, infos)."""
     comp_info = []
     comps = []
@@ -228,7 +386,7 @@ def _solve_components(u0s, hierarchy, bcs_list, options: Options, out_dtype, dev
         opts = options
         if comp == 2 and not options.honor_ms_for_az:
             opts = dataclasses.replace(options, ms=5)  # quirk Q3 (:685)
-        name = f"A{'xyz'[comp]}"
+        name = f"A{'xyz'[comp]}" + ("" if active_face is None else f"_face{active_face}")
         sbvp = _dist_bvp(hierarchy, bcs, opts, dist) if dist is not None else None
         if sbvp is not None:
             u, info = sbvp.solve(u0s[comp], None, zero_rhs=True, name=name)
@@ -266,8 +424,9 @@ def compute_vector_potential(
         mesh whose devices are not of ``device``'s type raises ValueError.
 
     Returns:
-      ierr (max over all nine sub-solves), A and B as (3, nz, ny, nx)
-      tensors on ``device``, and the per-solve diagnostics.
+      ierr (max over all sub-solves), A and B as (3, nz, ny, nx) tensors
+      on ``device`` (numpy arrays on the host when ``Options.host_curl``
+      applies), and the per-solve diagnostics.
     """
     dev = resolve_device(device)
     if dist is not None and any(torch.device(d).type != dev.type for d in dist.mesh.devices):
@@ -389,8 +548,20 @@ def compute_vector_potential(
         for comp in range(3)
     )
     with torch.profiler.record_function(SOLVE3D_RANGE):
-        u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
-        if dist is None and _batch_components(options, mode, (nz, ny, nx), dev):
+        if options.per_face:
+            # one face at a time, summed; each solve is cast to the output
+            # dtype before the add into A of the working dtype (as in JAX)
+            A = torch.zeros((3, nz, ny, nx), dtype=dtype, device=dev)
+            comp_info = []
+            for f in range(6):
+                u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev, active_face=f)
+                A_f, infos = _solve_components(u0s, hierarchy, bcs_list, options, out_dtype,
+                                               dev, dist, active_face=f)
+                A = A + A_f
+                comp_info += infos
+                del A_f
+        elif dist is None and _batch_components(options, mode, (nz, ny, nx), dev):
+            u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
             key = (hierarchy, bcs_list, dataclasses.astuple(options), str(dev))
             mbs = _MBS_CACHE.get(key)
             if mbs is None:
@@ -402,6 +573,7 @@ def compute_vector_potential(
             del u0
             A = A.to(out_dtype) if out_dtype == torch.float32 else A
         else:
+            u0s = _phase_at_u0(chi, hs, signs, (nz, ny, nx), dtype, dev)
             A, comp_info = _solve_components(u0s, hierarchy, bcs_list, options, out_dtype, dev,
                                              dist)
         _mark("solve3d")
@@ -409,11 +581,19 @@ def compute_vector_potential(
     # ---- flux-balance correction + curl (:453-477)
     _dbg(options, "Compute B = curl(A) and flux correction...")
     xs, ys, zs = (torch.as_tensor(m, dtype=dtype, device=dev) for m in (x, y, z))
-    A, B = _phase_post(
-        A, phi, xs, ys, zs, tuple(float(v) for v in Lq), tuple(float(v) for v in dq),
-        int(options.flux_correction_order), out_dtype,
-    )
-    _mark("post")
+    Lq_t, dq_t = tuple(float(v) for v in Lq), tuple(float(v) for v in dq)
+    if options.host_curl and int(options.flux_correction_order) == 0 and dist is None:
+        # B = curl(final A) under order 0: take it on the host from the A
+        # that is copied there anyway (Options.host_curl).  Under order 1 B
+        # holds the analytic field correction as well, and under dist JAX
+        # keeps the device path: both take the branch below.
+        A = _phase_post_acorr(A, phi, xs, ys, zs, Lq_t, out_dtype)
+        _mark("post")
+        A, B = _fetch_and_curl(A, dq_t, options.output_dtype, _mark, options.fetch_encoding)
+    else:
+        A, B = _phase_post(A, phi, xs, ys, zs, Lq_t, dq_t, int(options.flux_correction_order),
+                           out_dtype)
+        _mark("post")
 
     ierr = max([s.ierr for s in chi_info] + [s.ierr for s in comp_info])
     info = VectorPotentialInfo(

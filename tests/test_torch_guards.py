@@ -1,6 +1,6 @@
 """Guards of the port: it stands alone (no JAX, no ndsm_tpu), it never
-hides the device or a kernel behind a fallback, and it refuses options
-whose feature it does not have yet."""
+hides the device or a kernel behind a fallback, and it takes every option
+of the JAX package and ignores none."""
 
 import ast
 import dataclasses
@@ -36,7 +36,9 @@ def test_import_leaves_jax_out():
             "ndsm_tpu_torch.mg.batched, ndsm_tpu_torch.utils.cuda_build, "
             "ndsm_tpu_torch.ops.zc_sharded, ndsm_tpu_torch.ops.df_sharded, "
             "ndsm_tpu_torch.parallel.shard, ndsm_tpu_torch.parallel.collectives, "
-            "ndsm_tpu_torch.parallel.sm_engine, ndsm_tpu_torch.mg.operator; "
+            "ndsm_tpu_torch.parallel.sm_engine, ndsm_tpu_torch.mg.operator, "
+            "ndsm_tpu_torch.utils.profiling, ndsm_tpu_torch.examples.integration_scaling, "
+            "ndsm_tpu_torch.examples.unit_test_2d_solve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'ndsm_tpu' or m.startswith('ndsm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -141,11 +143,14 @@ def test_precision_resolution():
     {"host_curl": True},
     {"fetch_encoding": "split16"},
 ])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Options(**kw)
-    with pytest.raises(NotImplementedError):
-        convert.options_from_reference(dataclasses.asdict(ndsm_tpu.Options(**kw)))
+def test_formerly_unported_options_carried_by_convert(kw):
+    """per_face, host_curl and fetch_encoding are ported: the port's
+    Options take every value of the JAX package's, and convert carries
+    them through unchanged."""
+    o = Options(**kw)
+    assert convert.options_from_reference(dataclasses.asdict(ndsm_tpu.Options(**kw))) == o
+    for name, val in kw.items():
+        assert getattr(o, name) == val
 
 
 @pytest.mark.parametrize("mode", ["on", "off", "auto"])
