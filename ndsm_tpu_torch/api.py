@@ -18,6 +18,7 @@ import torch
 
 from .options import Options
 from .potential.vector_potential import compute_vector_potential
+from .utils import profiling
 
 __all__ = ["vector_potential"]
 
@@ -66,27 +67,32 @@ def vector_potential(
     (z, y) mesh, ``DistConfig(make_mesh_nd((2, 2), devices=["cuda:0"] *
     4), ("z", "y"))``, partitions the 3D component solves in z and y and
     the 2D chi faces in z.
+
+    One call of the registry (``utils.profiling.call``); the copy of A and
+    B is its ``ndsm.fetch`` span.
     """
-    if options is None:
-        options = Options(
-            ms=ms,
-            ncycles_max=ncycles_max,
-            niterex_max=niterex_max,
-            ex_tol=ex_tol,
-            vc_tol=vc_tol,
-            mean=mean,
-            debug=debug,
-            precision=precision,
+    with profiling.call("vector_potential"):
+        if options is None:
+            options = Options(
+                ms=ms,
+                ncycles_max=ncycles_max,
+                niterex_max=niterex_max,
+                ex_tol=ex_tol,
+                vc_tol=vc_tol,
+                mean=mean,
+                debug=debug,
+                precision=precision,
+            )
+        ierr, A, B, info = compute_vector_potential(
+            (x, y, z), np.asarray(b), options, device=device, dist=dist
         )
-    ierr, A, B, info = compute_vector_potential(
-        (x, y, z), np.asarray(b), options, device=device, dist=dist
-    )
-    if isinstance(A, torch.Tensor):  # not the host-curl pipeline: copy A and B
-        t0 = time.perf_counter()
-        A = A.cpu().numpy()
-        B = B.cpu().numpy()
-        if info.phases is not None:
-            info.phases["fetch"] = time.perf_counter() - t0
+        if isinstance(A, torch.Tensor):  # not the host-curl pipeline: copy A and B
+            t0 = time.perf_counter()
+            with profiling.span(profiling.FETCH):
+                A = A.cpu().numpy()
+                B = B.cpu().numpy()
+            if info.phases is not None:
+                info.phases["fetch"] = time.perf_counter() - t0
     if full_output:
         return ierr, A, B, info
     return ierr, A, B

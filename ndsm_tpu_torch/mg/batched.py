@@ -26,9 +26,11 @@ freezing, residual zeroing) is per lane:
     one matrix-vector product per active lane.
 
 The loops run on the host, as in ``PoissonBVP``: one device sync per
-V-cycle reads every active lane's du.  A lane whose iteration has stopped
-is frozen: the kernels skip it (it costs no sweep work), the transfers
-skip it, and its iterate is never touched again.  So a lane's result does
+V-cycle reads every active lane's du (each read is an ``ndsm.sync`` span
+of utils/profiling.py, each V-cycle's issue an ``ndsm.vcycle`` span).  A
+lane whose iteration has stopped is frozen: the kernels skip it (it costs
+no sweep work), the transfers skip it, and its iterate is never touched
+again.  So a lane's result does
 not depend on the other lanes (a one-lane solve equals its lane of a
 three-lane one).  Against the sequential route it is bitwise equal in
 fp64; in mixed precision it agrees to within 5e-9 and one cycle, since
@@ -73,8 +75,10 @@ from ..ops.transfer import (
     restrict_matrix_1d,
 )
 from ..options import IERR_COVFAIL, IERR_SUCCESS, Options, SolveInfo
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg
+from ..utils.profiling import host_read
 from .coarse import build_coarse_solver_matrix
 from .poisson import _EPS32, PoissonBVP, _np_dtype
 
@@ -215,7 +219,7 @@ class MultiBCSolver:
         on the host in one sync; 0.0 for frozen lanes."""
         vals = [du_metrics(a[k], b[k])[0 if self.options.du_max else 1]
                 for k in range(self.B) if act[k]]
-        got = iter(torch.stack(vals).tolist())
+        got = iter(host_read(torch.stack(vals).tolist))
         return [next(got) if act[k] else 0.0 for k in range(self.B)]
 
     def _coarse_relax(self, u, rhs, level, ex_tol, nmax_exact, act):
@@ -239,28 +243,30 @@ class MultiBCSolver:
 
     def _vcycle(self, u, rhs, ex_tol, nmax_exact, act):
         """One V-cycle of the active lanes (frozen lanes come back
-        unchanged).  Returns (u, per-lane coarse noconv)."""
-        L, shapes = self.h.ngrids, self.h.shapes
-        us = [None] * L
-        rhss = [None] * L
-        us[0], rhss[0] = u, rhs
-        for l in range(L - 1):
-            ul, r = self._smooth_residual(us[l], rhss[l], l, act)
-            rhss[l + 1] = self._transfer(r, self._restrict[l], shapes[l + 1], act)
-            us[l] = ul
-            us[l + 1] = torch.zeros((self.B,) + tuple(shapes[l + 1]), dtype=u.dtype,
-                                    device=u.device)
-        if self.coarse_direct:
-            us[L - 1] = self._coarse_solve(rhss[L - 1], act)
-            noconv = [False] * self.B
-        else:
-            us[L - 1], noconv = self._coarse_relax(us[L - 1], rhss[L - 1], L - 1, ex_tol,
-                                                   nmax_exact, act)
-        for l in range(L - 2, -1, -1):
-            uc = self._smooth(us[l + 1], rhss[l + 1], l + 1, self.options.ms, act)
-            cor = self._transfer(uc, self._interp[l], shapes[l], act)
-            us[l] = self._smooth_cor(us[l], cor, rhss[l], l, act)
-        return us[0], noconv
+        unchanged), issued inside the ``ndsm.vcycle`` span.  Returns (u,
+        per-lane coarse noconv)."""
+        with profiling.span(profiling.VCYCLE):
+            L, shapes = self.h.ngrids, self.h.shapes
+            us = [None] * L
+            rhss = [None] * L
+            us[0], rhss[0] = u, rhs
+            for l in range(L - 1):
+                ul, r = self._smooth_residual(us[l], rhss[l], l, act)
+                rhss[l + 1] = self._transfer(r, self._restrict[l], shapes[l + 1], act)
+                us[l] = ul
+                us[l + 1] = torch.zeros((self.B,) + tuple(shapes[l + 1]), dtype=u.dtype,
+                                        device=u.device)
+            if self.coarse_direct:
+                us[L - 1] = self._coarse_solve(rhss[L - 1], act)
+                noconv = [False] * self.B
+            else:
+                us[L - 1], noconv = self._coarse_relax(us[L - 1], rhss[L - 1], L - 1, ex_tol,
+                                                       nmax_exact, act)
+            for l in range(L - 2, -1, -1):
+                uc = self._smooth(us[l + 1], rhss[l + 1], l + 1, self.options.ms, act)
+                cor = self._transfer(uc, self._interp[l], shapes[l], act)
+                us[l] = self._smooth_cor(us[l], cor, rhss[l], l, act)
+            return us[0], noconv
 
     def _vcycle_du(self, u, rhs, ex_tol, nmax_exact, act):
         """_vcycle plus the per-lane metric against the pre-cycle iterate."""
@@ -307,8 +313,8 @@ class MultiBCSolver:
         s_safe = torch.where(pos, s, torch.ones_like(s))
         shape1 = (B,) + (1,) * self.h.ndim
         r32 = (r0 / s_safe.view(shape1)).to(self.inner_dtype)
-        s_host = s_safe.tolist()
-        pos_host = pos.tolist()
+        s_host = host_read(s_safe.tolist)
+        pos_host = host_read(pos.tolist)
 
         def du_of(b, du_e):
             return float(npdt(s_host[b]) * npdt(du_e)) if pos_host[b] else 0.0
@@ -368,7 +374,7 @@ class MultiBCSolver:
                         us[b], None, pend[b], self._dq[0], self.bcs_list[b], r32_out=r32[b])
                     if not active[b]:
                         pend[b] = None
-            s = float(torch.stack(mx).max())
+            s = host_read(float, torch.stack(mx).max())
             e, du_e, k, nc = self._inner_cycles(
                 torch.zeros_like(r32), r32, max(float(ex_tol), _EPS32 * s), nmax_exact,
                 vc_tol, it, nmax, active, lambda b, d: d)
@@ -400,7 +406,7 @@ class MultiBCSolver:
         solve = self._solve_df if self.df_defect else self._solve_loop
         u, du, it, flag = solve(u0, vc_tol, float(o.ex_tol), nmax, nmax_exact)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            host_read(torch.cuda.synchronize, self.device)
         wall = time.perf_counter() - t0
         infos = [
             SolveInfo(

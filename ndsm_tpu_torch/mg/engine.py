@@ -67,6 +67,8 @@ from ..ops.transfer import (
     interp_matrix_1d,
     restrict_matrix_1d,
 )
+from ..utils import profiling
+from ..utils.profiling import host_read
 from .coarse import build_coarse_solver_matrix
 
 # Direct coarse solves are precomputed dense (pseudo)inverses; cap the
@@ -252,7 +254,7 @@ class MGEngine:
         it = 0
         while du > tol and it < int(nmax_exact):
             u = self.t_sweep(u, rhs, level)
-            du = float(self.t_metric(u, u_sav))
+            du = host_read(float, self.t_metric(u, u_sav))
             u_sav = u
             it += 1
         return u, du > tol
@@ -276,31 +278,33 @@ class MGEngine:
 
     def t_vcycle(self, u, rhs, ex_tol, nmax_exact):
         """One V-cycle on the finest level (reference v_cycle,
-        ndsm_multigrid_core.f90:341-377).  Returns ``(u, coarse_noconv)``."""
-        L = self.h.ngrids
-        lanes = self._lanes(u)
-        us = [None] * L
-        rhss = [None] * L
-        us[0], rhss[0] = u, rhs
-        for l in range(L - 1):
-            ul, r = self.t_smooth_residual(us[l], rhss[l], l)
-            rhss[l + 1] = self.t_restrict(r, l)
-            us[l] = ul
-            us[l + 1] = torch.zeros(
-                lanes + tuple(self.h.shapes[l + 1]), dtype=self.dtype, device=u.device
-            )
-        if self.coarse_direct and L > 1:
-            us[L - 1] = self.t_coarse_solve_direct(rhss[L - 1])
-            noconv = False
-        else:
-            us[L - 1], noconv = self.t_solve_exact(
-                us[L - 1], rhss[L - 1], L - 1, ex_tol, nmax_exact
-            )
-        for l in range(L - 2, -1, -1):
-            uc = self.t_smooth(us[l + 1], rhss[l + 1], l + 1)
-            cor = self.t_prolong(uc, l)
-            us[l] = self.t_smooth_cor(us[l], cor, rhss[l], l)
-        return us[0], noconv
+        ndsm_multigrid_core.f90:341-377), issued inside the ``ndsm.vcycle``
+        span.  Returns ``(u, coarse_noconv)``."""
+        with profiling.span(profiling.VCYCLE):
+            L = self.h.ngrids
+            lanes = self._lanes(u)
+            us = [None] * L
+            rhss = [None] * L
+            us[0], rhss[0] = u, rhs
+            for l in range(L - 1):
+                ul, r = self.t_smooth_residual(us[l], rhss[l], l)
+                rhss[l + 1] = self.t_restrict(r, l)
+                us[l] = ul
+                us[l + 1] = torch.zeros(
+                    lanes + tuple(self.h.shapes[l + 1]), dtype=self.dtype, device=u.device
+                )
+            if self.coarse_direct and L > 1:
+                us[L - 1] = self.t_coarse_solve_direct(rhss[L - 1])
+                noconv = False
+            else:
+                us[L - 1], noconv = self.t_solve_exact(
+                    us[L - 1], rhss[L - 1], L - 1, ex_tol, nmax_exact
+                )
+            for l in range(L - 2, -1, -1):
+                uc = self.t_smooth(us[l + 1], rhss[l + 1], l + 1)
+                cor = self.t_prolong(uc, l)
+                us[l] = self.t_smooth_cor(us[l], cor, rhss[l], l)
+            return us[0], noconv
 
     def t_vcycle_du(self, u, rhs, ex_tol, nmax_exact, u_ref):
         """t_vcycle plus the inter-iterate metric against ``u_ref``.

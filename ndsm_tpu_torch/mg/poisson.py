@@ -70,9 +70,11 @@ import torch
 from ..grids import GridHierarchy
 from ..ops import df, stencils
 from ..options import IERR_COVFAIL, IERR_SUCCESS, Options, SolveInfo
+from ..utils import profiling
 from ..utils.caching import BoundedCache
 from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg, warn
+from ..utils.profiling import host_read
 from .engine import MGEngine
 
 __all__ = ["PoissonBVP", "get_poisson_bvp", "solve_poisson_bvp"]
@@ -95,10 +97,11 @@ def _cached_engine(hierarchy, bcs, ms, du_max, dtype, device, coarse_direct=Fals
            operator)
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
-        eng = MGEngine(
-            hierarchy, bcs, ms=ms, du_max=du_max, dtype=dtype, device=device,
-            coarse_direct=coarse_direct, smoother=smoother, operator=operator,
-        )
+        with profiling.span(profiling.BUILD):
+            eng = MGEngine(
+                hierarchy, bcs, ms=ms, du_max=du_max, dtype=dtype, device=device,
+                coarse_direct=coarse_direct, smoother=smoother, operator=operator,
+            )
         _ENGINE_CACHE.put(key, eng)
     return eng
 
@@ -109,8 +112,7 @@ def _np_dtype(dtype: torch.dtype):
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
+        host_read(torch.cuda.synchronize, device)
 
 
 def write_checkpoint(path: str, u: np.ndarray, cycles: int, du: float, shape) -> None:
@@ -276,7 +278,7 @@ class PoissonBVP:
             cond = (k == 0) | (
                 (du_of(du_e) >= vc_tol) & (it + k < nmax) & (k < inner_max)
             )
-            if not bool(cond.any()):
+            if not host_read(bool, cond.any()):
                 break
             e_new, noconv, du_new = eng32.t_vcycle_du(e, r32, ex_tol_eff, nmax_exact, e)
             if hist is not None:
@@ -314,12 +316,12 @@ class PoissonBVP:
         it, flag = 0, False
         while True:
             r32, mx, u = df.df_residual_3d(u, rhs, e, dq0, self.bcs)
-            ex_tol_eff = max(float(ex_tol), _EPS32 * float(mx))
+            ex_tol_eff = max(float(ex_tol), _EPS32 * host_read(float, mx))
             e = torch.zeros_like(r32)
             du_e, k = big, 0
             while k == 0 or (du_e >= vc_tol and it + k < nmax and k < inner_max):
                 e, noconv, du_t = eng32.t_vcycle_du(e, r32, ex_tol_eff, nmax_exact, e)
-                du_e = float(du_t)
+                du_e = host_read(float, du_t)
                 if hist is not None:
                     hist.append(du_e)
                 flag = flag or noconv
@@ -344,13 +346,13 @@ class PoissonBVP:
                 u, nc, du_t, k = self._mixed_group(
                     u, rhs, ex_tol, nmax_exact, vc_tol, it, nmax, inner_max, hist
                 )
-                ncyc, noconv = int(k), bool(nc)
+                ncyc, noconv = host_read(int, k), host_read(bool, nc)
             else:
                 u, noconv, du_t = self._inner.t_vcycle_du(u, rhs, ex_tol, nmax_exact, u)
                 ncyc = 1
                 if hist is not None:
                     hist.append(du_t)
-            du = float(du_t)
+            du = host_read(float, du_t)
             it += ncyc
             flag = flag or noconv
             self._debug(du)
@@ -369,7 +371,7 @@ class PoissonBVP:
         flag = torch.zeros((B,), dtype=torch.bool, device=u.device)
         while True:
             active = (it < nmax) & (du >= vc_tol)
-            if not bool(active.any()):
+            if not host_read(bool, active.any()):
                 break
             if self.mode == "mixed":
                 u_new, noconv, du_new, ncyc = self._mixed_group(
@@ -385,11 +387,18 @@ class PoissonBVP:
             it = it + torch.where(active, ncyc, torch.zeros_like(ncyc))
             flag = flag | (noconv & active)
         ierr = torch.where(du < vc_tol, IERR_SUCCESS, IERR_COVFAIL)
-        return u, du.tolist(), it.tolist(), ierr.tolist(), flag.tolist()
+        return u, *(host_read(x.tolist) for x in (du, it, ierr, flag))
 
     # ------------------------------------------------------------------
     # Public entry points
     # ------------------------------------------------------------------
+
+    def _uploading(self, *xs):
+        """The ``ndsm.upload`` span where an input is not a tensor on the
+        device (it is copied there), else nothing."""
+        if all(isinstance(x, torch.Tensor) and x.device.type == self.device.type for x in xs):
+            return contextlib.nullcontext()
+        return profiling.span(profiling.UPLOAD)
 
     def _as_field(self, x, what: str) -> torch.Tensor:
         t = torch.as_tensor(x, dtype=self.outer_dtype, device=self.device)
@@ -436,8 +445,9 @@ class PoissonBVP:
         vc_tol, ex_tol, nmax, nmax_exact = self._limits(
             vc_tol, ex_tol, ncycles_max, niterex_max
         )
-        u = self._as_field(u0, "u0")
-        r = None if zero_rhs else self._as_field(rhs, "rhs")
+        with self._uploading(u0, *(() if zero_rhs else (rhs,))):
+            u = self._as_field(u0, "u0")
+            r = None if zero_rhs else self._as_field(rhs, "rhs")
         hist = [] if history else None
         t0 = time.perf_counter()
         u, du, it, ierr, flag = self._run(
@@ -447,7 +457,8 @@ class PoissonBVP:
         info = SolveInfo(
             ierr=int(ierr), du_last=float(du), cycles=int(it), name=name,
             wall_time=time.perf_counter() - t0, coarse_noconv=bool(flag),
-            du_history=None if hist is None else tuple(float(v) for v in hist),
+            du_history=None if hist is None else tuple(
+                v if isinstance(v, float) else host_read(float, v) for v in hist),
         )
         self._post_warnings([info])
         return u, info
@@ -499,8 +510,9 @@ class PoissonBVP:
         vc_tol, ex_tol, nmax, nmax_exact = self._limits(
             vc_tol, ex_tol, ncycles_max, niterex_max
         )
-        u0 = torch.stack([self._as_field(u, "u0") for u in u0s])
-        rhs = torch.stack([self._as_field(r, "rhs") for r in rhss])
+        with self._uploading(*u0s, *rhss):
+            u0 = torch.stack([self._as_field(u, "u0") for u in u0s])
+            rhs = torch.stack([self._as_field(r, "rhs") for r in rhss])
         t0 = time.perf_counter()
         u, du, it, ierr, flag = self._batch_loop(u0, rhs, vc_tol, ex_tol, nmax, nmax_exact)
         _sync(self.device)
@@ -575,7 +587,7 @@ class PoissonBVP:
                 u, du, it, _, noconv = self._run(u, r, vc_tol, ex_tol, chunk, nmax_exact, 1,
                                                  None)
                 du, cycles, flag = float(du), cycles + int(it), flag or bool(noconv)
-                write_checkpoint(checkpoint_path, u.cpu().numpy(), cycles, du,
+                write_checkpoint(checkpoint_path, host_read(u.cpu).numpy(), cycles, du,
                                  self.h.fine_shape)
         info = SolveInfo(
             ierr=IERR_SUCCESS if du < vc_tol else IERR_COVFAIL, du_last=du, cycles=cycles,
@@ -635,8 +647,9 @@ def get_poisson_bvp(
     key = (hierarchy, bcs_t, opt_key, str(torch.device(device)), operator, shard_spec)
     bvp = _BVP_CACHE.get(key)
     if bvp is None:
-        bvp = PoissonBVP(hierarchy, bcs_t, options, device=device, operator=operator,
-                         shard_spec=shard_spec)
+        with profiling.span(profiling.BUILD):
+            bvp = PoissonBVP(hierarchy, bcs_t, options, device=device, operator=operator,
+                             shard_spec=shard_spec)
         _BVP_CACHE.put(key, bvp)
     return bvp
 
@@ -672,16 +685,18 @@ def solve_poisson_bvp(
     "cpu" runs the kernels' plain versions.  ``shard_spec`` (a
     ``parallel.shard.ShardSpec``) runs it on the sharded engine, as
     ``PoissonBVP(shard_spec=...)``.  Returns (u, SolveInfo) with u on the
-    device (under a spec, gathered on every process).
+    device (under a spec, gathered on every process).  One call of the
+    registry (``utils.profiling.call``).
     """
-    hierarchy = GridHierarchy.from_mesh(meshes, ngrids=ngrids)
-    bvp = get_poisson_bvp(hierarchy, bcs, options, device=device, operator=operator,
-                          shard_spec=shard_spec)
-    return bvp.solve(
-        u0,
-        rhs,
-        vc_tol=options.vc_tol,
-        ex_tol=options.ex_tol,
-        ncycles_max=options.ncycles_max,
-        niterex_max=options.niterex_max,
-    )
+    with profiling.call("solve_poisson_bvp"):
+        hierarchy = GridHierarchy.from_mesh(meshes, ngrids=ngrids)
+        bvp = get_poisson_bvp(hierarchy, bcs, options, device=device, operator=operator,
+                              shard_spec=shard_spec)
+        return bvp.solve(
+            u0,
+            rhs,
+            vc_tol=options.vc_tol,
+            ex_tol=options.ex_tol,
+            ncycles_max=options.ncycles_max,
+            niterex_max=options.niterex_max,
+        )

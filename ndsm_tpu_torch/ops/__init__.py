@@ -1,17 +1,19 @@
 """Stencil, reduction and transfer ops, and the CUDA kernel wrappers.
 
 ``KERNELS`` lists the wrapper of every hand-written kernel with its plain
-version, the TPU kernel it replaces and its CUDA source;
-``launch_counts``/``reset_launch_counts`` read and zero their launch
-counters (wrapper calls that launched), ``pass_launches`` the launches of
-the 3D red-black pass kernel behind them (``zc.sweeps_cuda.passes``),
+version, the TPU kernel it replaces and its CUDA source.  The launch
+counters are counters of the registry (utils/profiling.py; names under
+``zc.LAUNCHES`` and its siblings), so every per-call record carries them;
+these functions are views of it: ``launch_counts``/``reset_launch_counts``
+read and zero the wrappers' counters (calls that launched),
+``pass_launches`` the launches of the 3D red-black pass kernel behind them,
 ``compact_pass_launches`` those of its halves form behind the colour-split
-wrappers (``compact._sweeps_cuda.passes``),
-``v2d_route_launches`` the v2d launches of each route (``v2d.v2d_plan``),
-``plain_cuda_counts`` the number of times a plain version ran on a CUDA
-tensor.
+wrappers, ``v2d_route_launches`` the v2d launches of each route
+(``v2d.v2d_plan``), ``plain_cuda_counts`` the number of times a plain
+version ran on a CUDA tensor.
 """
 
+from ..utils.profiling import counter, reset
 from . import compact, df, df_sharded, fused, v2d, zc, zc_sharded
 from .fused import (
     fused_smooth_3d,
@@ -112,33 +114,28 @@ KERNELS = (
 
 
 def launch_counts() -> dict:
-    return {k[0]: k[1].launches for k in KERNELS}
+    return {k[0]: counter(zc.LAUNCHES + k[1].__name__) for k in KERNELS}
 
 
 def pass_launches() -> int:
-    return zc.sweeps_cuda.passes
+    return counter(zc.PASSES + "zc")
 
 
 def compact_pass_launches() -> int:
-    return compact._sweeps_cuda.passes
+    return counter(zc.PASSES + "compact")
 
 
 def v2d_route_launches() -> dict:
-    return dict(v2d.ROUTE_LAUNCHES)
+    return {route: counter(zc.V2D_ROUTE + route) for route in v2d.ROUTES}
 
 
 def plain_cuda_counts() -> dict:
-    return {k[2].__name__: k[2].plain_cuda_calls for k in KERNELS}
+    return {k[2].__name__: counter(zc.PLAIN_CUDA + k[2].__name__) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k[1].launches = 0
-        k[2].plain_cuda_calls = 0
-    zc.sweeps_cuda.passes = 0
-    compact._sweeps_cuda.passes = 0
-    for route in v2d.ROUTE_LAUNCHES:
-        v2d.ROUTE_LAUNCHES[route] = 0
+    for prefix in (zc.LAUNCHES, zc.PLAIN_CUDA, zc.PASSES, zc.V2D_ROUTE):
+        reset(prefix)
 
 
 __all__ = [

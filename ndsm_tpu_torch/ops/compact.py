@@ -28,9 +28,9 @@ contiguous: half the bytes of a dense half-sweep (ops/zc.py, ops/fused.py).
 
 Each wrapper, like ops/zc.py's: on a CUDA tensor launches the hand-written
 kernels of ``csrc/compact_smooth.cu`` (built at first use) and adds one to
-its ``launches`` count, or raises; on a CPU tensor runs its plain PyTorch
-version below, built from ops/stencils_compact.py (``plain_cuda_calls``
-counts any call of a plain version on a CUDA tensor).  The wrappers are
+its launch counter (``zc.count_launch``), or raises; on a CPU tensor runs
+its plain PyTorch version below, built from ops/stencils_compact.py
+(``zc.count_plain`` counts any call of a plain version on a CUDA tensor).  The wrappers are
 functional: inputs are never modified.
 
 The sweeps are ``ceil(nsweeps / w)`` launches of the halves form of the
@@ -40,8 +40,8 @@ ping-ponging between the result and one scratch pair of halves;
 :func:`compact_plan` is ops/zc.py's ``pass_plan`` (one resident pass of
 all sweeps on the smallest levels; the shared rows are the dense pass's)
 with an even tile width (a window starts on an even column, where both
-colours of a row start at k = wx0 / 2).  ``_sweeps_cuda.passes`` counts
-the launches (``ops.compact_pass_launches()``); ``_sweeps_cuda(...,
+colours of a row start at k = wx0 / 2).  The counter ``zc.PASSES +
+"compact"`` counts the launches (``ops.compact_pass_launches()``); ``_sweeps_cuda(...,
 previous=True)`` runs the previous design, one launch a half-sweep, for
 chip_smoke.py's "[design]" lines.
 
@@ -59,11 +59,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import stencils
 from . import stencils_compact as sc
 from . import zc
 from .fused import MAX_LANES, check_lanes, lane_masks, lane_residual
-from .zc import check_config, check_level, count_plain, dirichlet_mask, residual_cuda
+from .zc import (check_config, check_level, count_launch, count_plain, dirichlet_mask,
+                 residual_cuda)
 
 __all__ = [
     "compact_smooth_3d",
@@ -128,11 +130,6 @@ def merge_colors_3d_plain(R, B, nx: int):
     """``merge_colors`` of the halves."""
     count_plain(merge_colors_3d_plain, R)
     return sc.merge_colors_p(R, B, nx, _spatial_parity(R))
-
-
-for _f in (compact_smooth_3d_plain, compact_smooth_3d_batched_plain, split_colors_3d_plain,
-           merge_colors_3d_plain):
-    _f.plain_cuda_calls = 0
 
 
 # ----------------------------------------------------------------------
@@ -202,12 +199,10 @@ def _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active
                 dst[0].data_ptr(), dst[1].data_ptr(), nb, nz, ny, int(nx), color, dmask, act,
                 p.width, *p.tile, wz, wy, wx, w0, stream)
             cuda_build.check(rc, what)
-            _sweeps_cuda.passes += 1
+            profiling.count(zc.PASSES + "compact")
             src = dst
     return out
 
-
-_sweeps_cuda.passes = 0
 
 
 def _half_sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active,
@@ -300,7 +295,7 @@ def compact_smooth_3d(R, B, rhs_R, rhs_B, dq, bcs, nsweeps: int, nx: int
         return compact_smooth_3d_plain(R, B, rhs_R, rhs_B, dq, bcs, nsweeps, nx)
     Ro, Bo = _sweeps_cuda(R[None], B[None], rhs_R[None], rhs_B[None], dq, (bcs,), nsweeps, nx,
                           (True,), "compact_smooth_3d")
-    compact_smooth_3d.launches += 1
+    count_launch(compact_smooth_3d)
     return Ro[0], Bo[0]
 
 
@@ -316,7 +311,7 @@ def compact_smooth_3d_batched(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx
         return compact_smooth_3d_batched_plain(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps, nx,
                                                active)
     out = _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps, nx, active, name)
-    compact_smooth_3d_batched.launches += 1
+    count_launch(compact_smooth_3d_batched)
     return out
 
 
@@ -342,7 +337,7 @@ def split_colors_3d(u, cor=None, active=None) -> Tuple[torch.Tensor, torch.Tenso
         R, B = _split_cuda(u, cor, active)
     else:
         R, B = (h[0] for h in _split_cuda(u[None], None if cor is None else cor[None], active))
-    split_colors_3d.launches += 1
+    count_launch(split_colors_3d)
     return R, B
 
 
@@ -353,13 +348,9 @@ def merge_colors_3d(R, B, nx: int) -> torch.Tensor:
     if R.device.type == "cpu":
         return merge_colors_3d_plain(R, B, nx)
     u = _merge_cuda(R, B, nx) if R.ndim == 4 else _merge_cuda(R[None], B[None], nx)[0]
-    merge_colors_3d.launches += 1
+    count_launch(merge_colors_3d)
     return u
 
-
-for _f in (compact_smooth_3d, compact_smooth_3d_batched, split_colors_3d, merge_colors_3d):
-    _f.launches = 0
-del _f
 
 
 # ----------------------------------------------------------------------

@@ -17,8 +17,8 @@ of a stack) r32 is written there and returned, instead of a new tensor.
 Float64 throughout: the TPU kernel carried u as an f32 (hi, lo) pair only
 because f64 was emulated there; Hopper has it natively.  On a CUDA tensor
 the wrapper launches the z-marching tile of ``csrc/defect.cu`` (one
-launch; one maximum per block, reduced here) and adds one to
-``launches``, or raises.  On a CPU tensor it
+launch; one maximum per block, reduced here) and adds one to its
+launch counter, or raises.  On a CPU tensor it
 runs the plain version, built from ``stencils.poisson_residual`` in f64 —
 the same expression order as the kernel, so the two agree bit for bit.
 The wrapper never modifies its inputs: the updated iterate is a new tensor.
@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import stencils
-from .zc import check_level, dirichlet_mask
+from .zc import check_level, count_launch, count_plain, dirichlet_mask
 
 __all__ = ["df_residual_3d", "df_residual_3d_plain"]
 
@@ -40,7 +40,7 @@ def df_residual_3d_plain(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tenso
                          dq, bcs, r32_out: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`df_residual_3d`."""
     if u.device.type == "cuda":
-        df_residual_3d_plain.plain_cuda_calls += 1
+        count_plain(df_residual_3d_plain, u)
     if e is not None:
         u = u + e.to(torch.float64)
     r = stencils.poisson_residual(
@@ -49,8 +49,6 @@ def df_residual_3d_plain(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tenso
     r32 = r.to(torch.float32) if r32_out is None else r32_out.copy_(r)
     return r32, torch.max(torch.abs(r32)), u
 
-
-df_residual_3d_plain.plain_cuda_calls = 0
 
 
 def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
@@ -71,7 +69,7 @@ def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
         return df_residual_3d_plain(u, rhs, e, dq, bcs, r32_out)
 
     r32, mx, u_new = _defect_cuda(u, rhs, e, dq, bcs, r32_out)
-    df_residual_3d.launches += 1
+    count_launch(df_residual_3d)
     return r32, mx, u_new
 
 
@@ -101,6 +99,3 @@ def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None, previous: bool = False):
         )
         cuda_build.check(rc, "df_residual_3d")
     return r32, torch.max(block_max), u_new
-
-
-df_residual_3d.launches = 0

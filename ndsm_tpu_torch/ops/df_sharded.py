@@ -39,7 +39,7 @@ z-marching tile ``defect_tile_f64`` of ``csrc/defect.cu`` (one launch:
 column tiles and z chunks over the real block, the halo planes and rows
 read as data, the update's halo points written by the edge tiles and the
 end chunks; one maximum a block, reduced here; the z form is the y form
-with no y halo) and add one to their own ``launches``, or raise; on a CPU
+with no y halo) and add one to their own launch counter, or raise; on a CPU
 tensor they run the plain versions below, built from
 ``stencils.masked_residual`` in float64.  ``_defect_cuda(...,
 previous=True)`` launches the previous design, one thread a point of the
@@ -55,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import stencils
-from .zc import check_level, dirichlet_mask
+from .zc import check_level, count_launch, count_plain, dirichlet_mask
 
 __all__ = [
     "df_residual_sharded_3d",
@@ -105,7 +105,7 @@ def _defect_plain(u_ext, rhs, dq, bcs, offsets, extents):
 
 def _plain(fn, u_ext, rhs, e_ext, dq, bcs, offsets, extents):
     if u_ext.device.type == "cuda":
-        fn.plain_cuda_calls += 1
+        count_plain(fn, u_ext)
     if e_ext is None:
         return _defect_plain(u_ext, rhs, dq, bcs, offsets, extents)
     v = u_ext + e_ext.to(torch.float64)
@@ -134,11 +134,6 @@ def df_update_residual_sharded_3d_zy_plain(u_ext, rhs: Optional[torch.Tensor], e
                                            bcs, offsets, extents):
     return _plain(df_update_residual_sharded_3d_zy_plain, u_ext, rhs, e_ext, dq, bcs,
                   offsets, extents)
-
-
-for _f in (df_residual_sharded_3d_plain, df_update_residual_sharded_3d_plain,
-           df_residual_sharded_3d_zy_plain, df_update_residual_sharded_3d_zy_plain):
-    _f.plain_cuda_calls = 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -190,7 +185,7 @@ def _defect(fn, name, u_ext, rhs, e_ext, dq, bcs, offsets, extents, plain):
     if u_ext.device.type == "cpu":
         return _plain(plain, u_ext, rhs, e_ext, dq, bcs, offsets, extents)
     out = _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, name)
-    fn.launches += 1
+    count_launch(fn)
     return out
 
 
@@ -230,9 +225,3 @@ def df_update_residual_sharded_3d_zy(u_ext, rhs: Optional[torch.Tensor], e_ext, 
     return _defect(df_update_residual_sharded_3d_zy, "df_update_residual_sharded_3d_zy", u_ext,
                    rhs, e_ext, dq, bcs, offsets, extents,
                    df_update_residual_sharded_3d_zy_plain)
-
-
-for _f in (df_residual_sharded_3d, df_update_residual_sharded_3d, df_residual_sharded_3d_zy,
-           df_update_residual_sharded_3d_zy):
-    _f.launches = 0
-del _f

@@ -28,10 +28,10 @@ Each lane wrapper, like ops/zc.py's:
   * on a CUDA tensor launches the pass kernel (``ceil(nsweeps / w)``
     launches for all lanes, out of place, the first reading u + cor, the
     last writing the residual; ``zc.pass_plan`` gives w) and adds one to
-    its ``launches`` count, or raises;
+    its launch counter (``zc.count_launch``), or raises;
   * on a CPU tensor runs its plain PyTorch version below: per-lane masked
-    sweeps from ops/stencils.py (``plain_cuda_calls`` counts any call of a
-    plain version on a CUDA tensor).
+    sweeps from ops/stencils.py (``zc.count_plain`` counts any call of
+    a plain version on a CUDA tensor).
 
 The wrappers are functional: inputs are never modified.  Unlike the TPU
 kernel there is no mask-code array and no tile gate: every 3D shape with
@@ -44,11 +44,13 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from ..utils.caching import BoundedCache
 from . import stencils
 from .zc import (
     check_config,
     check_level,
+    count_launch,
     count_plain,
     sweeps_cuda,
     zc_smooth_3d,
@@ -84,12 +86,13 @@ def lane_masks(shape, bcs_list, device) -> Tuple[torch.Tensor, torch.Tensor, tor
     key = (shape, bcs_list, str(device))
     m = _MASKS.get(key)
     if m is None:
-        cols = [stencils.color_masks(shape, b, device) for b in bcs_list]
-        m = (
-            torch.stack([c[0] for c in cols]),
-            torch.stack([c[1] for c in cols]),
-            torch.stack([stencils.interior_mask(shape, b, device) for b in bcs_list]),
-        )
+        with profiling.span(profiling.BUILD):
+            cols = [stencils.color_masks(shape, b, device) for b in bcs_list]
+            m = (
+                torch.stack([c[0] for c in cols]),
+                torch.stack([c[1] for c in cols]),
+                torch.stack([stencils.interior_mask(shape, b, device) for b in bcs_list]),
+            )
         _MASKS.put(key, m)
     return m
 
@@ -152,11 +155,6 @@ def fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, bcs_list, nsweeps: int,
                        nsweeps, active)
 
 
-for _f in (fused_smooth_3d_batched_plain, fused_smooth_residual_3d_batched_plain,
-           fused_smooth_cor_3d_batched_plain):
-    _f.plain_cuda_calls = 0
-
-
 # ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
@@ -188,7 +186,7 @@ def fused_smooth_3d_batched(u, rhs, dq, bcs_list, nsweeps: int, active=None):
     if u.device.type == "cpu":
         return fused_smooth_3d_batched_plain(u, rhs, dq, bcs_list, nsweeps, active)
     out = sweeps_cuda(u, None, rhs, dq, bcs_list, nsweeps, active, "fused_smooth_3d_batched")
-    fused_smooth_3d_batched.launches += 1
+    count_launch(fused_smooth_3d_batched)
     return out
 
 
@@ -201,7 +199,7 @@ def fused_smooth_residual_3d_batched(u, rhs, dq, bcs_list, nsweeps: int, active=
     if u.device.type == "cpu":
         return fused_smooth_residual_3d_batched_plain(u, rhs, dq, bcs_list, nsweeps, active)
     out, r = sweeps_cuda(u, None, rhs, dq, bcs_list, nsweeps, active, name, residual=True)
-    fused_smooth_residual_3d_batched.launches += 1
+    count_launch(fused_smooth_residual_3d_batched)
     return out, r
 
 
@@ -214,7 +212,7 @@ def fused_smooth_cor_3d_batched(u, cor, rhs, dq, bcs_list, nsweeps: int, active=
     if u.device.type == "cpu":
         return fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, bcs_list, nsweeps, active)
     out = sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps, active, name)
-    fused_smooth_cor_3d_batched.launches += 1
+    count_launch(fused_smooth_cor_3d_batched)
     return out
 
 
@@ -224,9 +222,3 @@ def fused_smooth_cor_3d_batched(u, cor, rhs, dq, bcs_list, nsweeps: int, active=
 #: ndsm_tpu/ops/pallas_fused.py:fused_smooth_3d.
 fused_smooth_3d = zc_smooth_3d
 fused_smooth_3d_plain = zc_smooth_3d_plain
-
-
-for _f in (fused_smooth_3d_batched, fused_smooth_residual_3d_batched,
-           fused_smooth_cor_3d_batched):
-    _f.launches = 0
-del _f

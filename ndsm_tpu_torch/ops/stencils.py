@@ -34,6 +34,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.caching import BoundedCache
 
 BCS = Tuple[Tuple[str, str], ...]  # per-axis (lower, upper), each "N" or "D"
@@ -111,13 +112,14 @@ def interior_mask(shape: Tuple[int, ...], bcs: BCS, device) -> torch.Tensor:
     key = ("interior", tuple(shape), bcs, str(device))
     m = _MASKS.get(key)
     if m is None:
-        m = torch.ones(tuple(shape), dtype=torch.bool, device=device)
-        for ax, (blo, bhi) in enumerate(bcs):
-            idx = _axis_index(shape, ax, device)
-            if blo == "D":
-                m = m & (idx > 0)
-            if bhi == "D":
-                m = m & (idx < shape[ax] - 1)
+        with profiling.span(profiling.BUILD):
+            m = torch.ones(tuple(shape), dtype=torch.bool, device=device)
+            for ax, (blo, bhi) in enumerate(bcs):
+                idx = _axis_index(shape, ax, device)
+                if blo == "D":
+                    m = m & (idx > 0)
+                if bhi == "D":
+                    m = m & (idx < shape[ax] - 1)
         _MASKS.put(key, m)
     return m
 
@@ -132,13 +134,14 @@ def color_masks(shape: Tuple[int, ...], bcs: BCS, device, offsets=()):
     key = ("colors", tuple(shape), bcs, str(device), flip)
     m = _MASKS.get(key)
     if m is None:
-        s = _axis_index(shape, 0, device) + flip
-        for ax in range(1, len(shape)):
-            s = s + _axis_index(shape, ax, device)
-        parity = s % 2
-        interior = interior_mask(shape, bcs, device)
-        red = first_color_parity(bcs)
-        m = ((parity == red) & interior, (parity == 1 - red) & interior)
+        with profiling.span(profiling.BUILD):
+            s = _axis_index(shape, 0, device) + flip
+            for ax in range(1, len(shape)):
+                s = s + _axis_index(shape, ax, device)
+            parity = s % 2
+            interior = interior_mask(shape, bcs, device)
+            red = first_color_parity(bcs)
+            m = ((parity == red) & interior, (parity == 1 - red) & interior)
         _MASKS.put(key, m)
     return m
 
@@ -158,19 +161,20 @@ def shard_masks(shape: Tuple[int, ...], offsets, extents, bcs: BCS, device):
     key = ("shard", tuple(shape), offsets, extents, bcs, str(device))
     m = _MASKS.get(key)
     if m is None:
-        idx = [_axis_index(shape, ax, device) for ax in range(len(shape))]
-        for ax, o in enumerate(offsets):
-            idx[ax] = idx[ax] + o
-        extent = extents + tuple(shape[len(extents):])
-        parity = sum(idx[1:], idx[0]) % 2
-        interior = torch.ones(tuple(shape), dtype=torch.bool, device=device)
-        for ax, (blo, bhi) in enumerate(bcs):
-            if blo == "D":
-                interior = interior & (idx[ax] != 0)
-            if bhi == "D":
-                interior = interior & (idx[ax] != extent[ax] - 1)
-        red = first_color_parity(bcs)
-        m = ((parity == red) & interior, (parity == 1 - red) & interior, interior)
+        with profiling.span(profiling.BUILD):
+            idx = [_axis_index(shape, ax, device) for ax in range(len(shape))]
+            for ax, o in enumerate(offsets):
+                idx[ax] = idx[ax] + o
+            extent = extents + tuple(shape[len(extents):])
+            parity = sum(idx[1:], idx[0]) % 2
+            interior = torch.ones(tuple(shape), dtype=torch.bool, device=device)
+            for ax, (blo, bhi) in enumerate(bcs):
+                if blo == "D":
+                    interior = interior & (idx[ax] != 0)
+                if bhi == "D":
+                    interior = interior & (idx[ax] != extent[ax] - 1)
+            red = first_color_parity(bcs)
+            m = ((parity == red) & interior, (parity == 1 - red) & interior, interior)
         _MASKS.put(key, m)
     return m
 

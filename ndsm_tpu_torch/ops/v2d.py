@@ -9,13 +9,13 @@ static configuration (dq, bcs, number of sweeps):
 
   * on a CUDA tensor it launches one kernel of ``csrc/v2d_smooth.cu``
     (built at first use) on the route :func:`v2d_plan` gives the shape,
-    and adds one to its ``launches`` count, or raises.  The routes:
+    and adds one to its launch counter, or raises.  The routes:
     "block", one block a lane holds the lane in shared memory for the
     whole call; "cluster", a thread-block cluster of C blocks a lane, each
     holding a band of rows and one halo row a side, exchanged through the
     cluster's distributed shared memory; "global", for lanes that not even
     16 blocks hold, one block a lane sweeps in global memory (the first
-    design).  ``ROUTE_LAUNCHES`` counts the launches of each route;
+    design).  The registry counts the launches of each route;
   * on a CPU tensor it runs its plain PyTorch version below.
 
 Semantics (the JAX kernel's ``_sweep_body``): ``nsweeps`` times the red
@@ -37,16 +37,18 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import stencils
 from .reduce import SUM_THREADS, strided_block_sum
-from .zc import MAX_SMEM, check_level, count_plain, dirichlet_mask
+from .zc import (MAX_SMEM, V2D_ROUTE, check_level, count_launch, count_plain,
+                 dirichlet_mask)
 
 __all__ = [
     "V2dPlan",
     "v2d_plan",
     "lane_smem",
     "band",
-    "ROUTE_LAUNCHES",
+    "ROUTES",
     "v2d_smooth",
     "v2d_smooth_residual",
     "v2d_smooth_cor",
@@ -106,10 +108,6 @@ def v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     """The sweeps on ``u + cor``."""
     count_plain(v2d_smooth_cor_plain, u)
     return _sweeps_plain(u + cor, rhs, dq, bcs, nsweeps)
-
-
-for _f in (v2d_smooth_plain, v2d_smooth_residual_plain, v2d_smooth_cor_plain):
-    _f.plain_cuda_calls = 0
 
 
 # ----------------------------------------------------------------------
@@ -183,8 +181,8 @@ def _v2d_plan(lanes, ny, nx, cluster):
                    lane_smem(ny, nx, c), (c, lanes))
 
 
-#: Launches of each route on the card (the wrappers add one per call).
-ROUTE_LAUNCHES = {"block": 0, "cluster": 0, "global": 0}
+#: The routes; the wrappers count each call's under ``zc.V2D_ROUTE + route``.
+ROUTES = ("block", "cluster", "global")
 
 
 # ----------------------------------------------------------------------
@@ -228,8 +226,8 @@ def v2d_smooth(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     if u.device.type == "cpu":
         return v2d_smooth_plain(u, rhs, dq, bcs, nsweeps)
     out, _, route = _v2d_cuda(u, None, rhs, dq, bcs, nsweeps, False, "v2d_smooth")
-    v2d_smooth.launches += 1
-    ROUTE_LAUNCHES[route] += 1
+    count_launch(v2d_smooth)
+    profiling.count(V2D_ROUTE + route)
     return out
 
 
@@ -241,8 +239,8 @@ def v2d_smooth_residual(u, rhs, dq, bcs, nsweeps: int
     if u.device.type == "cpu":
         return v2d_smooth_residual_plain(u, rhs, dq, bcs, nsweeps)
     out, res, route = _v2d_cuda(u, None, rhs, dq, bcs, nsweeps, True, "v2d_smooth_residual")
-    v2d_smooth_residual.launches += 1
-    ROUTE_LAUNCHES[route] += 1
+    count_launch(v2d_smooth_residual)
+    profiling.count(V2D_ROUTE + route)
     return out, res
 
 
@@ -253,11 +251,6 @@ def v2d_smooth_cor(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     if u.device.type == "cpu":
         return v2d_smooth_cor_plain(u, cor, rhs, dq, bcs, nsweeps)
     out, _, route = _v2d_cuda(u, cor, rhs, dq, bcs, nsweeps, False, "v2d_smooth_cor")
-    v2d_smooth_cor.launches += 1
-    ROUTE_LAUNCHES[route] += 1
+    count_launch(v2d_smooth_cor)
+    profiling.count(V2D_ROUTE + route)
     return out
-
-
-for _f in (v2d_smooth, v2d_smooth_residual, v2d_smooth_cor):
-    _f.launches = 0
-del _f

@@ -6,7 +6,7 @@ Each wrapper takes the level's tensors and its static configuration (dq,
 bcs, number of sweeps):
 
   * on a CUDA tensor it launches the hand-written kernels and adds one to
-    its ``launches`` count, or raises.  The sweeps, with the residual
+    its launch counter (``count_launch``), or raises.  The sweeps, with the residual
     fused into the last pass, are one-lane calls of the multi-sweep pass
     kernel of ``csrc/fused_smooth.cu`` (launched by :func:`sweeps_cuda`,
     which ops/fused.py calls with B lanes); the mean form launches
@@ -17,7 +17,7 @@ bcs, number of sweeps):
 The plain versions are the oracles the kernels are held to on the card
 (bitwise: same expression order, no FMA contraction) and what the CPU tests
 compare with the JAX kernels.  Nothing on the main path calls a plain
-version for a CUDA tensor; ``plain_cuda_calls`` counts any that does.
+version for a CUDA tensor; ``count_plain`` counts any that does.
 
 Semantics (the JAX kernels'): ``nsweeps`` calls of ``rb_sweep``.  The
 first three take a problem that is not all-Neumann; ``zc_smooth_mean_3d``
@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import stencils
 from .reduce import SUM_THREADS, strided_block_sum
 
@@ -138,9 +139,24 @@ def mean_blocks(n: int) -> int:
     return min(MEAN_MAX_BLOCKS, -(-int(n) // SUM_THREADS))
 
 
+#: Prefixes of the registry counters (utils/profiling.py) of the kernel
+#: wrappers (``ops.launch_counts()`` and its siblings read them): a
+#: wrapper's calls that launched, a plain version's calls on a CUDA tensor,
+#: the pass launches of the 3D kernel and of its halves form, and the v2d
+#: launches of each route.
+LAUNCHES = "ndsm.launches."
+PLAIN_CUDA = "ndsm.plain_cuda."
+PASSES = "ndsm.passes."
+V2D_ROUTE = "ndsm.v2d_route."
+
+
+def count_launch(fn) -> None:
+    profiling.count(LAUNCHES + fn.__name__)
+
+
 def count_plain(fn, u: torch.Tensor) -> None:
     if u.device.type == "cuda":
-        fn.plain_cuda_calls += 1
+        profiling.count(PLAIN_CUDA + fn.__name__)
 
 
 # ----------------------------------------------------------------------
@@ -190,11 +206,6 @@ def zc_smooth_mean_3d_plain(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
         u = stencils.red_black(u, rhs, dq, bcs)
         u = u - _global_mean(u)
     return u
-
-
-for _f in (zc_smooth_3d_plain, zc_smooth_residual_3d_plain, zc_smooth_cor_3d_plain,
-           zc_smooth_mean_3d_plain):
-    _f.plain_cuda_calls = 0
 
 
 # ----------------------------------------------------------------------
@@ -385,8 +396,8 @@ def run_passes(u, cor, rhs, dq, bcs_list, active, what: str, plan):
     with ``bcs_list[b]``, out of place: the first reads u + cor when cor
     is given, each later one the previous pass's output, ping-ponging so
     that the last writes the returned stack.  Returns (u', r), r None
-    unless the last pass writes the residual.  ``sweeps_cuda.passes``
-    counts the launches."""
+    unless the last pass writes the residual.  The counter ``PASSES +
+    "zc"`` counts the launches."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -407,7 +418,7 @@ def run_passes(u, cor, rhs, dq, bcs_list, active, what: str, plan):
                 nb, nz, ny, nx, color, dmask, act, p.width, *p.tile, wz, wy, wx, w0, stream,
             )
             cuda_build.check(rc, what)
-            sweeps_cuda.passes += 1
+            profiling.count(PASSES + "zc")
             src = dst
     return out, r
 
@@ -421,8 +432,6 @@ def sweeps_cuda(u, cor, rhs, dq, bcs_list, nsweeps: int, active, what: str,
     out, r = run_passes(u, cor, rhs, dq, bcs_list, active, what, plan)
     return (out, r) if residual else out
 
-
-sweeps_cuda.passes = 0
 
 
 def residual_cuda(u, rhs, dq, bcs_list, active, what: str) -> torch.Tensor:
@@ -564,7 +573,7 @@ def zc_smooth_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
         return zc_smooth_3d_plain(u, rhs, dq, bcs, nsweeps)
     out = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,),
                       "zc_smooth_3d")[0]
-    zc_smooth_3d.launches += 1
+    count_launch(zc_smooth_3d)
     return out
 
 
@@ -578,7 +587,7 @@ def zc_smooth_residual_3d(u, rhs, dq, bcs, nsweeps: int
         return zc_smooth_residual_3d_plain(u, rhs, dq, bcs, nsweeps)
     out, r = sweeps_cuda(u[None], None, rhs[None], dq, (bcs,), nsweeps, (True,),
                          "zc_smooth_residual_3d", residual=True)
-    zc_smooth_residual_3d.launches += 1
+    count_launch(zc_smooth_residual_3d)
     return out[0], r[0]
 
 
@@ -591,7 +600,7 @@ def zc_smooth_cor_3d(u, cor, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
         return zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, nsweeps)
     out = sweeps_cuda(u[None], cor[None], rhs[None], dq, (bcs,), nsweeps, (True,),
                       "zc_smooth_cor_3d")[0]
-    zc_smooth_cor_3d.launches += 1
+    count_launch(zc_smooth_cor_3d)
     return out
 
 
@@ -605,10 +614,5 @@ def zc_smooth_mean_3d(u, rhs, dq, bcs, nsweeps: int) -> torch.Tensor:
     if u.device.type == "cpu":
         return zc_smooth_mean_3d_plain(u, rhs, dq, bcs, nsweeps)
     out = _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps)
-    zc_smooth_mean_3d.launches += 1
+    count_launch(zc_smooth_mean_3d)
     return out
-
-
-for _f in (zc_smooth_3d, zc_smooth_residual_3d, zc_smooth_cor_3d, zc_smooth_mean_3d):
-    _f.launches = 0
-del _f

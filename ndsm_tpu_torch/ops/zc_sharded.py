@@ -34,7 +34,7 @@ the shard form of the multi-sweep pass (``csrc/lane_pass.cuh``), all
 by ``zc.shard_pass_plan`` (the extended block's partitioned ends are the
 pass's cut edges; the z form is the y form with Hy = 0 and y not cut); u
 and r come back as contiguous real blocks.  Each wrapper adds one to its
-own ``launches``, or raises (a failed build, a refused launch, a pass
+own launch counter, or raises (a failed build, a refused launch, a pass
 whose window does not fit a block's shared memory).  On a CPU tensor they
 run the plain versions below, built from ``stencils.shard_masks`` and
 ``stencils.masked_red_black``.  There is no shape or offset gate: odd
@@ -48,7 +48,8 @@ from typing import Tuple
 import torch
 
 from . import stencils
-from .zc import call_args, check_config, check_level, count_plain, shard_pass_plan
+from .zc import (call_args, check_config, check_level, count_launch, count_plain,
+                 shard_pass_plan)
 
 __all__ = [
     "zc_smooth_sharded_3d",
@@ -135,11 +136,6 @@ def zc_smooth_residual_sharded_3d_zy_plain(u_ext, rhs_ext, dq, bcs, nsweeps: int
     return _smooth_plain(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, True)
 
 
-for _f in (zc_smooth_sharded_3d_plain, zc_smooth_residual_sharded_3d_plain,
-           zc_smooth_sharded_3d_zy_plain, zc_smooth_residual_sharded_3d_zy_plain):
-    _f.plain_cuda_calls = 0
-
-
 # ----------------------------------------------------------------------
 # CUDA launches and wrappers
 # ----------------------------------------------------------------------
@@ -205,7 +201,7 @@ def _smooth(fn, plain, name, u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents,
         return plain(u_ext, rhs_ext, dq, bcs, nsweeps, *plain_args)
     out = _smooth_cuda(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, residual,
                        name)
-    fn.launches += 1
+    count_launch(fn)
     return out
 
 
@@ -247,9 +243,3 @@ def zc_smooth_residual_sharded_3d_zy(u_ext, rhs_ext, dq, bcs, nsweeps: int, offs
     return _smooth(zc_smooth_residual_sharded_3d_zy, zc_smooth_residual_sharded_3d_zy_plain,
                    "zc_smooth_residual_sharded_3d_zy", u_ext, rhs_ext, dq, bcs, nsweeps,
                    offsets, extents, halos, True, (offsets, extents, halos))
-
-
-for _f in (zc_smooth_sharded_3d, zc_smooth_residual_sharded_3d, zc_smooth_sharded_3d_zy,
-           zc_smooth_residual_sharded_3d_zy):
-    _f.launches = 0
-del _f

@@ -74,9 +74,11 @@ from ..ops.deriv import curl, curl_np_into
 from ..ops.reduce import trapz_2d
 from ..options import IERR_BADMESH, Options, VectorPotentialInfo
 from ..parallel.sm_engine import ShardedPoissonBVP, seam_of
+from ..utils import profiling
 from ..utils.caching import BoundedCache
 from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg
+from ..utils.profiling import host_read
 from . import faces as F
 
 __all__ = ["compute_vector_potential"]
@@ -85,10 +87,11 @@ _SUB = "compute_vector_potential"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
-#: torch.profiler ranges around the chi and solve3d phases (each
-#: synchronised at its end).
-CHI_RANGE = "ndsm.chi_phase"
-SOLVE3D_RANGE = "ndsm.solve3d_phase"
+#: The spans (utils/profiling.py) of the chi and solve3d phases, each
+#: synchronised at its end (as are the faces and post phases); under a
+#: profiler each is a named range.
+CHI_RANGE = profiling.CHI
+SOLVE3D_RANGE = profiling.SOLVE3D
 
 _MBS_CACHE: BoundedCache = BoundedCache(maxsize=8)
 _DIST_BVP_CACHE: BoundedCache = BoundedCache(maxsize=32)
@@ -275,7 +278,7 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
         scale = torch.where(s > 0, 32767.0 / s, torch.zeros_like(s))
         src = (hi, torch.round(corr * scale).to(torch.int16))
         del corr
-        inv_scale = float(s) / 32767.0
+        inv_scale = host_read(float, s) / 32767.0
     else:
         src = (A,)
     mark("slab_split")
@@ -326,7 +329,7 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
         rebuilt = []
         for t in tasks:
             if cuda:
-                events[t].synchronize()
+                host_read(events[t].synchronize)
             if split16:
                 rebuilt.append(pool.submit(land, *t))
             else:
@@ -373,10 +376,11 @@ def _dist_bvp(hierarchy, bcs, options: Options, dist):
         names = tuple(dist.axis_names[: hierarchy.ndim - 1])
         counts = dist.mesh.submesh(names).shape  # the shards of the axes it partitions
         if seam_of(hierarchy, counts, dist.min_rows_per_shard):
-            bvp = ShardedPoissonBVP(
-                hierarchy, bcs, options, mesh=dist.mesh, axis_names=names,
-                min_rows_per_shard=dist.min_rows_per_shard,
-            )
+            with profiling.span(profiling.BUILD):
+                bvp = ShardedPoissonBVP(
+                    hierarchy, bcs, options, mesh=dist.mesh, axis_names=names,
+                    min_rows_per_shard=dist.min_rows_per_shard,
+                )
         _DIST_BVP_CACHE.put(key, bvp)
     return bvp or None
 
@@ -447,7 +451,7 @@ def compute_vector_potential(
     def _mark(name):
         """Wall time since the previous mark, after the device is idle."""
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            host_read(torch.cuda.synchronize, dev)
         now = time.perf_counter()
         phases[name] = phases.get(name, 0.0) + (now - t_last[0])
         t_last[0] = now
@@ -487,21 +491,23 @@ def compute_vector_potential(
 
     # ---- faces: Bn, fluxes, areas (only the six faces are uploaded)
     _dbg(options, "Extract boundary conditions and face fluxes...")
-    bn = []
-    for f in range(6):
-        comp = F.FACE_COMP[f]
-        idx = F.face_volume_index(f, (nz, ny, nx))
-        bn.append(torch.as_tensor(np.ascontiguousarray(b[comp][idx]), dtype=dtype, device=dev))
-    spacings = []
-    for f in range(6):
-        d1, d2 = F.FACE_DIMS[f]
-        if options.reference_flux_quirk:
-            spacings.append((float(dq[0]), float(dq[1])))
-        else:
-            spacings.append((float(dq[d2]), float(dq[d1])))
-    areas = tuple(float(Lq[d1] * Lq[d2]) for (d1, d2) in F.FACE_DIMS)
-    chi_rhs, phi = _phase_pre(bn, spacings, areas)
-    _mark("faces")
+    with profiling.span(profiling.FACES):
+        bn = []
+        for f in range(6):
+            comp = F.FACE_COMP[f]
+            idx = F.face_volume_index(f, (nz, ny, nx))
+            bn.append(torch.as_tensor(np.ascontiguousarray(b[comp][idx]), dtype=dtype,
+                                      device=dev))
+        spacings = []
+        for f in range(6):
+            d1, d2 = F.FACE_DIMS[f]
+            if options.reference_flux_quirk:
+                spacings.append((float(dq[0]), float(dq[1])))
+            else:
+                spacings.append((float(dq[d2]), float(dq[d1])))
+        areas = tuple(float(Lq[d1] * Lq[d2]) for (d1, d2) in F.FACE_DIMS)
+        chi_rhs, phi = _phase_pre(bn, spacings, areas)
+        _mark("faces")
 
     # ---- six all-Neumann 2D solves, one lane-batched solve per hierarchy
     _dbg(options, "Solve BVP on each boundary...")
@@ -512,9 +518,10 @@ def compute_vector_potential(
         d1, d2 = F.FACE_DIMS[f]
         hierarchy = GridHierarchy.from_mesh((mesh_xyz[d2], mesh_xyz[d1]))
         groups.setdefault(hierarchy, []).append(f)
-    # The named range lets a torch.profiler trace attribute device work and
-    # launches to this phase (chip_smoke.py reads it).
-    with torch.profiler.record_function(CHI_RANGE):
+    # Under a profiler the span is a named range that a trace gives this
+    # phase's device work and launches to (the benchmark's configurations
+    # name it among their ``solve_ranges``).
+    with profiling.span(CHI_RANGE):
         for hierarchy, faces_in_group in groups.items():
             rhss = [chi_rhs[f] for f in faces_in_group]
             u0s = [torch.zeros_like(r) for r in rhss]
@@ -555,7 +562,7 @@ def compute_vector_potential(
         tuple(("N", "N") if (2 - axis) == comp else ("D", "D") for axis in range(3))
         for comp in range(3)
     )
-    with torch.profiler.record_function(SOLVE3D_RANGE):
+    with profiling.span(SOLVE3D_RANGE):
         if options.per_face:
             # one face at a time, summed; each solve is cast to the output
             # dtype before the add into A of the working dtype (as in JAX)
@@ -573,7 +580,8 @@ def compute_vector_potential(
             key = (hierarchy, bcs_list, dataclasses.astuple(options), str(dev))
             mbs = _MBS_CACHE.get(key)
             if mbs is None:
-                mbs = MultiBCSolver(hierarchy, bcs_list, options, device=dev)
+                with profiling.span(profiling.BUILD):
+                    mbs = MultiBCSolver(hierarchy, bcs_list, options, device=dev)
                 _MBS_CACHE.put(key, mbs)
             u0 = torch.stack(u0s)
             del u0s
@@ -588,20 +596,22 @@ def compute_vector_potential(
 
     # ---- flux-balance correction + curl (:453-477)
     _dbg(options, "Compute B = curl(A) and flux correction...")
-    xs, ys, zs = (torch.as_tensor(m, dtype=dtype, device=dev) for m in (x, y, z))
-    Lq_t, dq_t = tuple(float(v) for v in Lq), tuple(float(v) for v in dq)
-    if options.host_curl and int(options.flux_correction_order) == 0 and dist is None:
-        # B = curl(final A) under order 0: take it on the host from the A
-        # that is copied there anyway (Options.host_curl).  Under order 1 B
-        # holds the analytic field correction as well, and under dist JAX
-        # keeps the device path: both take the branch below.
-        A = _phase_post_acorr(A, phi, xs, ys, zs, Lq_t, out_dtype)
+    host_curl = options.host_curl and int(options.flux_correction_order) == 0 and dist is None
+    with profiling.span(profiling.POST):
+        xs, ys, zs = (torch.as_tensor(m, dtype=dtype, device=dev) for m in (x, y, z))
+        Lq_t, dq_t = tuple(float(v) for v in Lq), tuple(float(v) for v in dq)
+        if host_curl:
+            # B = curl(final A) under order 0: take it on the host from the A
+            # that is copied there anyway (Options.host_curl).  Under order 1
+            # B holds the analytic field correction as well, and under dist
+            # JAX keeps the device path: both take the branch below.
+            A = _phase_post_acorr(A, phi, xs, ys, zs, Lq_t, out_dtype)
+        else:
+            A, B = _phase_post(A, phi, xs, ys, zs, Lq_t, dq_t,
+                               int(options.flux_correction_order), out_dtype)
         _mark("post")
+    if host_curl:
         A, B = _fetch_and_curl(A, dq_t, options.output_dtype, _mark, options.fetch_encoding)
-    else:
-        A, B = _phase_post(A, phi, xs, ys, zs, Lq_t, dq_t, int(options.flux_correction_order),
-                           out_dtype)
-        _mark("post")
 
     ierr = max([s.ierr for s in chi_info] + [s.ierr for s in comp_info])
     info = VectorPotentialInfo(

@@ -30,6 +30,7 @@ import torch
 
 from ndsm_tpu.ops import pallas_compact
 from ndsm_tpu.ops import stencils_compact as jsc
+from ndsm_tpu_torch import ops
 from ndsm_tpu_torch.ops import compact, stencils, zc
 from ndsm_tpu_torch.ops import stencils_compact as sc
 
@@ -233,7 +234,7 @@ def test_wrappers_are_plain_on_cpu_and_functional():
     keep = [t.clone() for t in (u, r, R, B, rR, rB)]
     fns = (compact.compact_smooth_3d, compact.compact_smooth_3d_batched,
            compact.split_colors_3d, compact.merge_colors_3d)
-    before = [f.launches for f in fns]
+    before = [ops.launch_counts()[f.__name__] for f in fns]
     bcs = COMPONENT_BCS[1]
     for g, w in zip(compact.compact_smooth_3d(R, B, rR, rB, DQ, bcs, ns, nx),
                     compact.compact_smooth_3d_plain(R, B, rR, rB, DQ, bcs, ns, nx)):
@@ -247,7 +248,7 @@ def test_wrappers_are_plain_on_cpu_and_functional():
         assert torch.equal(g, w)
     assert torch.equal(compact.merge_colors_3d(R, B, nx), compact.merge_colors_3d_plain(R, B, nx))
     assert all(torch.equal(a, b) for a, b in zip(keep, (u, r, R, B, rR, rB)))
-    assert before == [f.launches for f in fns]
+    assert before == [ops.launch_counts()[f.__name__] for f in fns]
 
 
 def test_wrapper_input_checks():
@@ -284,7 +285,7 @@ def test_wrapper_input_checks():
 
 
 def test_compact_wrappers_listed_with_the_kernels():
-    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.utils import profiling
 
     rows = {k[0]: k for k in ops.KERNELS}
     for name in ("compact_smooth_3d", "compact_smooth_3d_batched"):
@@ -292,7 +293,8 @@ def test_compact_wrappers_listed_with_the_kernels():
         assert rows[name][4] == "ndsm_tpu_torch/csrc/compact_smooth.cu"
     assert rows["split_colors_3d"][1] is compact.split_colors_3d
     assert rows["merge_colors_3d"][2] is compact.merge_colors_3d_plain
-    compact.compact_smooth_3d.launches = 3
+    ops.reset_launch_counts()
+    profiling.count(zc.LAUNCHES + "compact_smooth_3d", 3)
     assert ops.launch_counts()["compact_smooth_3d"] == 3
     ops.reset_launch_counts()
     assert ops.launch_counts()["compact_smooth_3d"] == 0

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from ndsm_tpu.ops import pallas_fused, stencils as js
+from ndsm_tpu_torch import ops
 from ndsm_tpu_torch.ops import fused, zc
 
 torch.set_num_threads(1)
@@ -133,9 +134,9 @@ def test_wrappers_are_plain_on_cpu_and_functional():
     shape, ns = (6, 7, 8), 2
     u, r, c = (_t(a) for a in _data((3,) + shape, 5))
     u0 = u.clone()
-    before = {f.__name__: f.launches for f in (
-        fused.fused_smooth_3d_batched, fused.fused_smooth_residual_3d_batched,
-        fused.fused_smooth_cor_3d_batched, fused.fused_smooth_3d)}
+    names = ("fused_smooth_3d_batched", "fused_smooth_residual_3d_batched",
+             "fused_smooth_cor_3d_batched", "fused_smooth_3d")
+    before = {k: ops.launch_counts()[k] for k in names}
     assert torch.equal(fused.fused_smooth_3d_batched(u, r, DQ, COMPONENT_BCS, ns),
                        fused.fused_smooth_3d_batched_plain(u, r, DQ, COMPONENT_BCS, ns))
     for a, b in zip(fused.fused_smooth_residual_3d_batched(u, r, DQ, COMPONENT_BCS, ns),
@@ -146,9 +147,7 @@ def test_wrappers_are_plain_on_cpu_and_functional():
     assert torch.equal(fused.fused_smooth_3d(u[0], r[0], DQ, COMPONENT_BCS[0], ns),
                        fused.fused_smooth_3d_plain(u[0], r[0], DQ, COMPONENT_BCS[0], ns))
     assert torch.equal(u, u0)
-    assert before == {f.__name__: f.launches for f in (
-        fused.fused_smooth_3d_batched, fused.fused_smooth_residual_3d_batched,
-        fused.fused_smooth_cor_3d_batched, fused.fused_smooth_3d)}
+    assert before == {k: ops.launch_counts()[k] for k in names}
 
 
 def test_wrapper_input_checks():
@@ -178,11 +177,12 @@ def test_wrapper_input_checks():
 def test_one_lane_form_is_the_zc_wrapper():
     """fused_smooth_3d is ops/zc.py's zc_smooth_3d (both are the one-lane
     call of the lane kernels), so the two names share one launch counter."""
-    from ndsm_tpu_torch import ops
+    from ndsm_tpu_torch.utils import profiling
 
     assert fused.fused_smooth_3d is zc.zc_smooth_3d
     assert fused.fused_smooth_3d_plain is zc.zc_smooth_3d_plain
-    zc.zc_smooth_3d.launches = 5
+    ops.reset_launch_counts()
+    profiling.count(zc.LAUNCHES + "zc_smooth_3d", 5)
     counts = ops.launch_counts()
     ops.reset_launch_counts()
     assert counts["fused_smooth_3d"] == counts["zc_smooth_3d"] == 5

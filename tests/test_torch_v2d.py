@@ -34,6 +34,7 @@ import ndsm_tpu
 import ndsm_tpu_torch
 from ndsm_tpu.mg import poisson as jpoisson
 from ndsm_tpu.ops import pallas_v2d
+from ndsm_tpu_torch import ops
 from ndsm_tpu_torch.ops import v2d
 
 torch.set_num_threads(1)
@@ -111,7 +112,8 @@ def test_lanes_are_independent_and_wrappers_functional():
     leaves its inputs untouched."""
     u, r, c = (_t(a) for a in _data((6, 22, 26), 1))
     u0 = u.clone()
-    before = [f.launches for f in (v2d.v2d_smooth, v2d.v2d_smooth_residual, v2d.v2d_smooth_cor)]
+    names = ("v2d_smooth", "v2d_smooth_residual", "v2d_smooth_cor")
+    before = [ops.launch_counts()[k] for k in names]
     for bcs in (ALL_N, MIXED):
         s = v2d.v2d_smooth(u, r, DQ, bcs, 3)
         su, sr = v2d.v2d_smooth_residual(u, r, DQ, bcs, 3)
@@ -125,8 +127,7 @@ def test_lanes_are_independent_and_wrappers_functional():
             assert torch.equal(lu, su[k]) and torch.equal(lr, sr[k])
             assert torch.equal(v2d.v2d_smooth_cor(u[k], c[k], r[k], DQ, bcs, 3), sc[k])
     assert torch.equal(u, u0)
-    assert before == [f.launches for f in
-                      (v2d.v2d_smooth, v2d.v2d_smooth_residual, v2d.v2d_smooth_cor)]
+    assert before == [ops.launch_counts()[k] for k in names]
 
 
 def test_all_neumann_mean_is_the_rounded_reciprocal_product():
