@@ -6,12 +6,29 @@
 ``device="cuda"`` (the default) runs on the CUDA device and raises when
 there is none; ``device="cpu"`` runs the same pipeline on the CPU with the
 kernels' plain PyTorch versions.  Nothing chooses the device for you.
+
+How A and B reach the host: on a CUDA device each is copied, in chunks of
+at most ``FETCH_BLOCK_BYTES`` of its flat storage, through a ring of
+``FETCH_BLOCKS`` pinned host blocks on a side stream, and the host copies
+each block, as its chunk lands, into a fresh numpy array (a copy on
+torch's CPU threads) while the next chunk crosses.  The two arrays are
+allocated when the call starts, and two worker threads write a byte of
+each of their pages while the card computes, so the copy into them takes
+no page faults.  The ring is built once a device a process and reused by
+every call, so the pinned memory the copy holds is ``FETCH_BLOCKS x
+FETCH_BLOCK_BYTES`` (64 MiB a device), whatever the number of calls or of
+results kept.  The arrays returned are the caller's own: no array is a
+view of the ring, and a later call never writes into them.  On the CPU A
+and B are the tensors' own memory (``Tensor.numpy()``, no copy).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import mmap
+import threading
 import time
-from typing import Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +38,138 @@ from .potential.vector_potential import compute_vector_potential
 from .utils import profiling
 
 __all__ = ["vector_potential"]
+
+#: The pinned ring of the copy of A and B to the host (module docstring):
+#: its blocks, and the bytes of each, which is the most a chunk holds.
+FETCH_BLOCKS = 2
+FETCH_BLOCK_BYTES = 32 << 20
+
+
+def chunk_plan(nbytes: int, block: int) -> List[Tuple[int, int]]:
+    """The byte ranges ``[a, b)`` of the chunks of an ``nbytes`` copy: at
+    most ``block`` bytes each, in order, covering every byte once."""
+    return [(a, min(a + block, nbytes)) for a in range(0, nbytes, block)]
+
+
+def run_ring(n: int, nblocks: int, enqueue: Callable[[int, int], object],
+             land: Callable[[int, int], None]) -> None:
+    """Pass ``n`` chunks through a ring of ``nblocks`` blocks, chunk i
+    through block ``i % nblocks``: ``enqueue(i, block)`` starts its copy
+    into the block and returns what to ``synchronize()`` on before
+    ``land(i, block)`` copies it out on the host.  Chunk ``i + nblocks`` is
+    enqueued only after chunk i has landed, so no block is refilled before
+    its host copy is done, while the copies of the chunks between cross."""
+    pending = [enqueue(i, i) for i in range(min(n, nblocks))]
+    for i in range(n):
+        slot = i % nblocks
+        pending[slot].synchronize()
+        land(i, slot)
+        if i + nblocks < n:
+            pending[slot] = enqueue(i + nblocks, slot)
+
+
+def byte_chunks(tensors: Sequence[torch.Tensor], block: int,
+                out: Optional[Sequence[np.ndarray]] = None):
+    """The C-contiguous numpy arrays that receive the tensors, and the
+    chunks that fill them: ``(source bytes, destination bytes, a, b)``,
+    flat uint8 views of each tensor and of its array, tensor after tensor.
+    An array of ``out`` receives its tensor where it has the tensor's shape
+    and dtype; otherwise a fresh array does."""
+    arrays, chunks = [], []
+    for k, t in enumerate(tensors):
+        t = t.contiguous()
+        shape, dtype = tuple(t.shape), torch.empty((), dtype=t.dtype).numpy().dtype
+        dst = None if out is None else out[k]
+        if dst is None or dst.shape != shape or dst.dtype != dtype:
+            dst = np.empty(shape, dtype=dtype)
+        src_b = t.reshape(-1).view(torch.uint8)
+        dst_b = torch.from_numpy(dst.reshape(-1).view(np.uint8))
+        chunks += [(src_b, dst_b, a, b) for a, b in chunk_plan(src_b.numel(), block)]
+        arrays.append(dst)
+    return arrays, chunks
+
+
+def _paged_in(shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """A fresh array with one byte of each page written: its pages are
+    mapped, so the copy into it takes no page faults."""
+    a = np.empty(shape, dtype=dtype)
+    a.reshape(-1).view(np.uint8)[::mmap.PAGESIZE] = 0
+    return a
+
+
+_PAGER: Optional[concurrent.futures.ThreadPoolExecutor] = None
+
+
+def page_in(shape: Tuple[int, ...], dtype) -> list:
+    """Futures of two fresh arrays of ``shape`` and ``dtype``, for A and B,
+    whose pages two worker threads map while the caller goes on (a numpy
+    write, which releases the interpreter lock)."""
+    global _PAGER
+    with _LOCK:
+        if _PAGER is None:
+            _PAGER = concurrent.futures.ThreadPoolExecutor(2, thread_name_prefix="ndsm-page-in")
+    return [_PAGER.submit(_paged_in, shape, np.dtype(dtype)) for _ in range(2)]
+
+
+class _Ring:
+    """``FETCH_BLOCKS`` pinned host blocks of one device, with a side
+    stream and an event a block; one fetch at a time holds ``lock``."""
+
+    def __init__(self, device: torch.device):
+        self.blocks = [torch.empty(FETCH_BLOCK_BYTES, dtype=torch.uint8, pin_memory=True)
+                       for _ in range(FETCH_BLOCKS)]
+        self.stream = torch.cuda.Stream(device)
+        self.events = [torch.cuda.Event() for _ in range(FETCH_BLOCKS)]
+        self.lock = threading.Lock()
+        profiling.count(profiling.FETCH_RING_BUILDS)
+
+
+_RINGS: dict = {}
+_LOCK = threading.Lock()  # builds the rings and the page-in threads
+
+
+def _ring(device: torch.device) -> _Ring:
+    with _LOCK:
+        ring = _RINGS.get(device)
+        if ring is None:
+            ring = _RINGS[device] = _Ring(device)
+    return ring
+
+
+def to_host(tensors: Sequence[torch.Tensor],
+            out: Optional[Sequence[np.ndarray]] = None) -> List[np.ndarray]:
+    """The tensors as numpy arrays on the host: on the CPU their own memory;
+    on a CUDA device the arrays of ``out`` that match them (``byte_chunks``)
+    or fresh ones, filled through the device's pinned ring (module
+    docstring), the chunks' copies on a side stream that first waits for
+    the current stream."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.numpy() for t in tensors]
+    ring = _ring(dev)
+    with ring.lock:
+        out, chunks = byte_chunks(tensors, ring.blocks[0].numel(), out)
+        blocks, events, stream = ring.blocks, ring.events, ring.stream
+
+        def enqueue(i, slot):
+            src, _, a, b = chunks[i]
+            blocks[slot][: b - a].copy_(src[a:b], non_blocking=True)
+            events[slot].record(stream)
+            return events[slot]
+
+        def land(i, slot):
+            _, dst, a, b = chunks[i]
+            dst[a:b].copy_(blocks[slot][: b - a])
+
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(stream):
+                run_ring(len(chunks), len(blocks), enqueue, land)
+        finally:
+            stream.synchronize()  # no copy into a block outlives the lock
+    profiling.count(profiling.FETCH_CHUNKS, len(chunks))
+    profiling.count(profiling.FETCH_BYTES, sum(b - a for _, _, a, b in chunks))
+    return out
 
 
 def vector_potential(
@@ -68,8 +217,16 @@ def vector_potential(
     4), ("z", "y"))``, partitions the 3D component solves in z and y and
     the 2D chi faces in z.
 
+    On a CUDA device A and B reach the host through the device's ring of
+    ``FETCH_BLOCKS`` pinned blocks of ``FETCH_BLOCK_BYTES`` (64 MiB of
+    pinned memory, fixed; module docstring), chunk by chunk, into fresh
+    arrays paged in while the card computes.  The arrays are the caller's
+    own: no array is a view of the ring, and a later call writes into none
+    of them.
+
     One call of the registry (``utils.profiling.call``); the copy of A and
-    B is its ``ndsm.fetch`` span.
+    B is its ``ndsm.fetch`` span, its chunks and bytes the counters
+    ``ndsm.fetch.chunks`` and ``ndsm.fetch.bytes``.
     """
     with profiling.call("vector_potential"):
         if options is None:
@@ -83,14 +240,17 @@ def vector_potential(
                 debug=debug,
                 precision=precision,
             )
+        # the arrays A and B will land in, paged in while the card computes
+        pages = None
+        if torch.device(device).type == "cuda" and not options.host_curl:
+            pages = page_in(np.shape(b), options.output_dtype)
         ierr, A, B, info = compute_vector_potential(
             (x, y, z), np.asarray(b), options, device=device, dist=dist
         )
         if isinstance(A, torch.Tensor):  # not the host-curl pipeline: copy A and B
             t0 = time.perf_counter()
             with profiling.span(profiling.FETCH):
-                A = A.cpu().numpy()
-                B = B.cpu().numpy()
+                A, B = to_host((A, B), None if pages is None else [f.result() for f in pages])
             if info.phases is not None:
                 info.phases["fetch"] = time.perf_counter() - t0
     if full_output:

@@ -43,6 +43,11 @@ The spans and counters of the program:
   ``ndsm.vcycle``     the host issuing one V-cycle
   ``ndsm.build``      an engine, solver, handle or mask built on a cache miss
   ``ndsm.rebuild``    counter: a miss on a key the cache had evicted
+  ``ndsm.fetch.chunks``, ``ndsm.fetch.bytes``
+                      counters: the chunks and bytes of A and B that went
+                      through the pinned ring (``api.to_host``)
+  ``ndsm.fetch.ring_builds``
+                      counter: pinned rings built (one a device a process)
   ==================  =====================================================
 
 Only the ranges in ``RANGES`` reach a profiler by default: each lies
@@ -77,6 +82,9 @@ SYNC = "ndsm.sync"
 VCYCLE = "ndsm.vcycle"
 BUILD = "ndsm.build"
 REBUILD = "ndsm.rebuild"
+FETCH_CHUNKS = "ndsm.fetch.chunks"
+FETCH_BYTES = "ndsm.fetch.bytes"
+FETCH_RING_BUILDS = "ndsm.fetch.ring_builds"
 
 #: Spans that open a profiler range whenever a profiler records.
 RANGES = frozenset({UPLOAD, FETCH, FACES, CHI, SOLVE3D, POST, SYNC})
