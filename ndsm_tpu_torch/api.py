@@ -14,8 +14,14 @@ each block, as its chunk lands, into a fresh numpy array (a copy on
 torch's CPU threads) while the next chunk crosses.  The two arrays are
 allocated when the call starts, and two worker threads write a byte of
 each of their pages while the card computes, so the copy into them takes
-no page faults.  The ring is built once a device a process and reused by
-every call, so the pinned memory the copy holds is ``FETCH_BLOCKS x
+no page faults.  Each array lies in a host buffer of its own, which goes
+back to the process's pool when the last array or view on it is freed;
+the pool keeps the ``HOST_KEEP`` buffers freed last, and a call whose
+array has a kept buffer's size takes it, already paged in; a call of
+another size lets them go before it allocates.  At 512^3 a fresh pair
+is 1.6 million page faults, which can outlast the card's work.  The
+ring is built once a device a process and reused by every call, so the
+pinned memory the copy holds is ``FETCH_BLOCKS x
 FETCH_BLOCK_BYTES`` (64 MiB a device), whatever the number of calls or of
 results kept.  The arrays returned are the caller's own: no array is a
 view of the ring, and a later call never writes into them.  On the CPU A
@@ -25,9 +31,11 @@ and B are the tensors' own memory (``Tensor.numpy()``, no copy).
 from __future__ import annotations
 
 import concurrent.futures
+import math
 import mmap
 import threading
 import time
+import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +51,9 @@ __all__ = ["vector_potential"]
 #: its blocks, and the bytes of each, which is the most a chunk holds.
 FETCH_BLOCKS = 2
 FETCH_BLOCK_BYTES = 32 << 20
+#: Freed host buffers of A and B kept for later calls (module docstring);
+#: 0 hands every freed buffer back to the system.
+HOST_KEEP = 2
 
 
 def chunk_plan(nbytes: int, block: int) -> List[Tuple[int, int]]:
@@ -89,26 +100,90 @@ def byte_chunks(tensors: Sequence[torch.Tensor], block: int,
     return arrays, chunks
 
 
-def _paged_in(shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
-    """A fresh array with one byte of each page written: its pages are
-    mapped, so the copy into it takes no page faults."""
-    a = np.empty(shape, dtype=dtype)
-    a.reshape(-1).view(np.uint8)[::mmap.PAGESIZE] = 0
+class _Lease:
+    """A host buffer lent to one array: numpy keeps it as the array's base
+    (``__array_interface__``), so it lives while any array or view on the
+    buffer does, and its death gives the buffer back (``_give_back``)."""
+
+    __slots__ = ("__array_interface__", "__weakref__")
+
+
+_IDLE: List[np.ndarray] = []  # freed buffers (flat uint8 arrays), the newest last
+_POOL_LOCK = threading.Lock()
+
+
+def _give_back(buf: np.ndarray) -> None:
+    """Keep a freed buffer (``_Lease``'s finalizer).  The cyclic collector
+    may run a finalizer in a thread that holds the pool's lock, so one that
+    finds the lock taken lets the buffer go instead of waiting."""
+    if not _POOL_LOCK.acquire(blocking=False):
+        return
+    try:
+        _IDLE.append(buf)
+        del _IDLE[: max(len(_IDLE) - HOST_KEEP, 0)]
+    finally:
+        _POOL_LOCK.release()
+
+
+def _take(nbytes: int) -> Optional[np.ndarray]:
+    """The newest kept buffer of ``nbytes``, taken out of the pool; with
+    none, the pool lets every buffer go, so that the fresh buffer of the
+    new size may reuse their memory, already paged in."""
+    with _POOL_LOCK:
+        for i in range(len(_IDLE) - 1, -1, -1):
+            if _IDLE[i].nbytes == nbytes:
+                return _IDLE.pop(i)
+        _IDLE.clear()
+    return None
+
+
+def _lend(buf: np.ndarray, shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """An array of ``shape`` and ``dtype`` on ``buf``, which goes back to
+    the pool when the last array or view on it is freed."""
+    lease = _Lease()
+    lease.__array_interface__ = {"data": (buf.ctypes.data, False),
+                                 "shape": tuple(shape), "typestr": dtype.str, "version": 3}
+    a = np.asarray(lease)
+    weakref.finalize(lease, _give_back, buf).atexit = False
     return a
+
+
+def _paged_in(shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+    """An array on a fresh buffer with one byte of each page written: its
+    pages are mapped, so the copy into it takes no page faults."""
+    nbytes = math.prod(shape) * dtype.itemsize
+    if nbytes == 0:
+        return np.empty(shape, dtype=dtype)
+    buf = np.empty(nbytes, dtype=np.uint8)
+    buf[::mmap.PAGESIZE] = 0
+    return _lend(buf, shape, dtype)
 
 
 _PAGER: Optional[concurrent.futures.ThreadPoolExecutor] = None
 
 
 def page_in(shape: Tuple[int, ...], dtype) -> list:
-    """Futures of two fresh arrays of ``shape`` and ``dtype``, for A and B,
-    whose pages two worker threads map while the caller goes on (a numpy
-    write, which releases the interpreter lock)."""
+    """Futures of two arrays of ``shape`` and ``dtype`` for A and B, none
+    sharing memory with a live array: each on a kept buffer of its size
+    (done at once; counted ``ndsm.fetch.recycled``), or on a fresh one
+    whose pages a worker thread maps while the caller goes on
+    (``_paged_in``, a numpy write, which releases the interpreter lock)."""
     global _PAGER
+    dtype = np.dtype(dtype)
     with _LOCK:
         if _PAGER is None:
             _PAGER = concurrent.futures.ThreadPoolExecutor(2, thread_name_prefix="ndsm-page-in")
-    return [_PAGER.submit(_paged_in, shape, np.dtype(dtype)) for _ in range(2)]
+    futures = []
+    for _ in range(2):
+        buf = _take(math.prod(shape) * dtype.itemsize)
+        if buf is None:
+            futures.append(_PAGER.submit(_paged_in, shape, dtype))
+            continue
+        profiling.count(profiling.FETCH_RECYCLED)
+        done = concurrent.futures.Future()
+        done.set_result(_lend(buf, shape, dtype))
+        futures.append(done)
+    return futures
 
 
 class _Ring:

@@ -43,9 +43,10 @@ What the port changes:
     106-136) no level has a kernel route: every sweep and residual is the
     operator's ``relax`` / ``residual``, plain tensor code, as the JAX
     engine runs an operator on its masked-XLA path (the kernels encode
-    the Poisson stencil).  Its direct coarse solve uses
-    ``operator.coarse_matrix``, or relaxes to ``ex_tol`` when that is
-    None.
+    the Poisson stencil).  Each call runs inside the span
+    ``ndsm.op.relax`` or ``ndsm.op.residual`` (utils/profiling.py).  Its
+    direct coarse solve uses ``operator.coarse_matrix``, or relaxes to
+    ``ex_tol`` when that is None.
 
 Besides the V-cycle, the reference's reduced drivers ``two_grid`` and
 ``one_grid`` (ndsm_multigrid_core.f90:385-441).
@@ -76,6 +77,18 @@ from .coarse import build_coarse_solver_matrix
 _COARSE_DIRECT_MAX = 4096
 
 __all__ = ["MGEngine"]
+
+
+def _spanned(name: str, fn):
+    """``fn`` called inside the span ``name`` (an injected operator's
+    ``relax`` or ``residual``)."""
+    span = profiling.span(name)
+
+    def call(*args):
+        with span:
+            return fn(*args)
+
+    return call
 
 
 class MGEngine:
@@ -115,9 +128,11 @@ class MGEngine:
                 "compact" if smoother == "compact" else "zc")
         elif operator is None and dtype == torch.float32 and hierarchy.ndim == 2:
             self.kernel_route = "v2d"
-        self._relax = stencils.rb_sweep if operator is None else operator.relax
-        self._residual = (stencils.poisson_residual if operator is None
-                          else operator.residual)
+        if operator is None:
+            self._relax, self._residual = stencils.rb_sweep, stencils.poisson_residual
+        else:
+            self._relax = _spanned(profiling.OP_RELAX, operator.relax)
+            self._residual = _spanned(profiling.OP_RESIDUAL, operator.residual)
         coarse_shape = hierarchy.shapes[-1]
         self.coarse_direct = bool(coarse_direct) and int(
             np.prod(coarse_shape)

@@ -107,6 +107,7 @@ import torch
 
 from ..ops import stencils
 from ..ops.stencils import BCS
+from ..utils import profiling
 from ..utils.caching import BoundedCache
 
 __all__ = [
@@ -296,7 +297,8 @@ class DiffusionOperator(MGOperator):
     coefficients and ``den`` of a level are computed once per (shape,
     dtype, device, weights, window) and kept until the solve returns: the port
     runs eagerly, so without them every relax and residual call would
-    evaluate ``coef`` again.  Outside it each call computes them afresh,
+    evaluate ``coef`` again.  Each build counts one ``ndsm.op.terms``
+    (utils/profiling.py).  Outside it each call computes them afresh,
     so an operator held by the engine and BVP caches keeps nothing on
     the device between solves.  The numbers are the same either way.
     """
@@ -333,6 +335,7 @@ class DiffusionOperator(MGOperator):
         key = (tuple(u.shape), u.dtype, str(u.device), w, window)
         terms = self._terms.get(key)
         if terms is None:
+            profiling.count(profiling.OP_TERMS)
             halves = _diffusion_halves(tuple(u.shape), self.coef, u.dtype, u.device, window)
             den = None
             for ax, (alo, ahi) in enumerate(halves):
@@ -375,7 +378,8 @@ class DiffusionOperator(MGOperator):
     def coarse_matrix(self, shape, dq, bcs):
         from .coarse import build_coarse_matrix_from_operator
 
-        return build_coarse_matrix_from_operator(self, shape, dq, bcs)
+        with profiling.span(profiling.OP_COARSE_BUILD):
+            return build_coarse_matrix_from_operator(self, shape, dq, bcs)
 
     def is_singular(self, bcs):
         return stencils.is_all_neumann(bcs)

@@ -48,14 +48,26 @@ The spans and counters of the program:
                       through the pinned ring (``api.to_host``)
   ``ndsm.fetch.ring_builds``
                       counter: pinned rings built (one a device a process)
+  ``ndsm.fetch.recycled``
+                      counter: host buffers of A and B taken from the pool
+                      of freed ones, already paged in (``api.page_in``)
+  ``ndsm.op.relax``, ``ndsm.op.residual``
+                      ``MGEngine`` calling an injected operator's ``relax``
+                      or ``residual`` (none without an operator)
+  ``ndsm.op.terms``   counter: a level's face terms built
+                      (``DiffusionOperator``, on a miss of its cache)
+  ``ndsm.op.coarse_build``
+                      ``DiffusionOperator.coarse_matrix`` assembling its
+                      dense coarse matrix
+                      (``coarse.build_coarse_matrix_from_operator``)
   ==================  =====================================================
 
 Only the ranges in ``RANGES`` reach a profiler by default: each lies
 outside the solve phases or encloses no kernel, so a trace that gives a
 kernel to its innermost range still gives every solve kernel to
-``ndsm.chi_phase`` or ``ndsm.solve3d_phase``.  ``ndsm.vcycle`` and
-``ndsm.build`` enclose kernels inside those phases and open ranges only
-under ``trace(log_dir, detail=True)``.
+``ndsm.chi_phase`` or ``ndsm.solve3d_phase``.  ``ndsm.vcycle``,
+``ndsm.build`` and the ``ndsm.op.*`` spans enclose kernels inside those
+phases and open ranges only under ``trace(log_dir, detail=True)``.
 """
 
 from __future__ import annotations
@@ -85,11 +97,16 @@ REBUILD = "ndsm.rebuild"
 FETCH_CHUNKS = "ndsm.fetch.chunks"
 FETCH_BYTES = "ndsm.fetch.bytes"
 FETCH_RING_BUILDS = "ndsm.fetch.ring_builds"
+FETCH_RECYCLED = "ndsm.fetch.recycled"
+OP_RELAX = "ndsm.op.relax"
+OP_RESIDUAL = "ndsm.op.residual"
+OP_TERMS = "ndsm.op.terms"
+OP_COARSE_BUILD = "ndsm.op.coarse_build"
 
 #: Spans that open a profiler range whenever a profiler records.
 RANGES = frozenset({UPLOAD, FETCH, FACES, CHI, SOLVE3D, POST, SYNC})
 #: Spans that open one only under ``trace(detail=True)``.
-DETAIL_RANGES = frozenset({VCYCLE, BUILD})
+DETAIL_RANGES = frozenset({VCYCLE, BUILD, OP_RELAX, OP_RESIDUAL, OP_COARSE_BUILD})
 #: Per-call records ``calls()`` keeps.
 CALLS_KEPT = 4096
 
@@ -103,9 +120,10 @@ def trace(log_dir: str, detail: bool = False) -> Iterator[torch.profiler.profile
     ``log_dir`` (``<host>_<pid>.<time>.pt.trace.json``).  Records CPU
     activity, and CUDA activity when ``torch.cuda.is_available()``.
     Yields the profiler, whose ``key_averages()`` the caller may read.
-    ``detail=True`` also opens a range for every ``ndsm.vcycle`` and
-    ``ndsm.build`` span: a view per V-cycle, whose ranges take the
-    kernels they enclose from the phase ranges.
+    ``detail=True`` also opens a range for every span of
+    ``DETAIL_RANGES`` (``ndsm.vcycle``, ``ndsm.build``, ``ndsm.op.*``): a
+    view per V-cycle and per operator call, whose ranges take the kernels
+    they enclose from the phase ranges.
 
     Example:
         with ndsm_tpu_torch.utils.profiling.trace("ndsm-trace"):

@@ -1,6 +1,7 @@
 """The copy of A and B to the host (``ndsm_tpu_torch.api``): the chunk plan,
 the ring's handoff order under a stand-in copy engine, the whole chunked
-copy emulated with host blocks, and the CPU device's zero-copy arrays; on
+copy emulated with host blocks, the pool of freed host buffers that later
+calls take already paged in, and the CPU device's zero-copy arrays; on
 a card (``-m cuda``), the ring's arrays bitwise ``.cpu().numpy()``'s, the
 caller's own, and one ring a device however many calls.
 
@@ -137,6 +138,65 @@ def test_page_in_gives_fresh_arrays_the_copy_takes(shape, dtype):
     for _, d, a, b in chunks:
         d[a:b].copy_(t.reshape(-1).view(torch.uint8)[a:b])
     assert first.tobytes() == out[1].tobytes() == t.numpy().tobytes()
+
+
+def _pair(shape, dtype):
+    return [f.result(timeout=60) for f in api.page_in(shape, dtype)]
+
+
+@pytest.mark.parametrize("shape, dtype", [((3, 22, 22, 22), "float64"), ((3, 13, 27, 6), "float32")])
+def test_freed_buffers_serve_the_next_call_paged_in(shape, dtype):
+    """Once the caller frees a call's A and B, the next call of their size
+    gets their buffers back (``ndsm.fetch.recycled``), already paged in;
+    a size no kept buffer has gets fresh ones."""
+    api._IDLE.clear()
+    first = _pair(shape, dtype)
+    ptrs = {a.ctypes.data for a in first}
+    del first
+    assert len(api._IDLE) == 2
+    P.reset("ndsm.fetch.")
+    again = _pair(shape, dtype)
+    assert {a.ctypes.data for a in again} == ptrs and P.counter(P.FETCH_RECYCLED) == 2
+    assert not api._IDLE
+    for a in again:
+        assert a.shape == shape and a.dtype == np.dtype(dtype) and a.flags.c_contiguous
+        assert a.flags.writeable
+    other = _pair((3, 5, 5, 5), dtype)
+    assert P.counter(P.FETCH_RECYCLED) == 2 and not {a.ctypes.data for a in other} & ptrs
+
+
+@pytest.mark.parametrize("keep", ["array", "view", "tensor"])
+def test_a_buffer_stays_the_callers_while_anything_holds_it(keep):
+    """An array, a view of it or a tensor on it keeps its buffer out of the
+    pool: later calls never write into what the caller still holds."""
+    api._IDLE.clear()
+    shape = (3, 9, 10, 11)
+    a, b = _pair(shape, "float64")
+    a[:] = 7.0
+    held = {"array": a, "view": a[1:], "tensor": torch.from_numpy(a)}[keep]
+    del a, b
+    assert len(api._IDLE) == 1
+    for _ in range(3):
+        for c in _pair(shape, "float64"):
+            assert not np.shares_memory(c, np.asarray(held))
+            c[:] = -1.0
+    assert (np.asarray(held) == 7.0).all()
+    del held
+    assert len(api._IDLE) == api.HOST_KEEP
+
+
+def test_pool_keeps_host_keep_buffers(monkeypatch):
+    api._IDLE.clear()
+    arrays = _pair((3, 8, 8, 8), "float64") + _pair((3, 8, 8, 8), "float64")
+    del arrays
+    assert len(api._IDLE) == api.HOST_KEEP == 2
+    arrays = _pair((3, 9, 8, 8), "float64")  # another size: the kept ones are let go
+    assert not api._IDLE
+    del arrays
+    monkeypatch.setattr(api, "HOST_KEEP", 0)
+    arrays = _pair((3, 8, 8, 8), "float32")
+    del arrays
+    assert not api._IDLE
 
 
 def _box(n, seed):
