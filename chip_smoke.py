@@ -67,7 +67,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          whole dense-interface call (split, sweeps, merge) timed beside
          zc_smooth_3d; at 220^3 (one lane, three lanes) the pass against
          the previous design (2 ns half-sweep launches) in turns
-         ("[design]").
+         ("[design]");
+       - ``DiffusionOperator``'s sweep and residual (csrc/diffusion.cu)
+         bitwise at 257^3, 129^3, 65x64x63 and 2x3x5, float32 and float64,
+         three face sets, two coefficients, both colour flips; timed at
+         257^3 ("[diffusion]", "[time]": the float32 sweep and the float64
+         residual are the table's rows).
   3. path 1, the main path: ``vector_potential`` in mixed precision with
      default options (the three component solves batched on the card) on
      the analytic potential-field case at 22^3 and 220^3, checked against
@@ -158,9 +163,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      (vc_tol 1e-10) and ``DiffusionOperator(lambda a, b, c: 1 + a*b*c)``,
      Dirichlet boxes, mixed, at 129^3 and 257^3 on the manufactured cases
      of examples/helmholtz_operator.py and diffusion_operator.py: ierr 0,
-     error ratio 3.5-4.5, no kernel and no plain version launched during
-     the warm calls (the operator route is plain tensor code), each 257^3
-     call profiled once; the generic coarse assembly timed on the host.
+     error ratio 3.5-4.5, no plain version run during the warm calls, no
+     kernel launched under Helmholtz (plain tensor code) and only its own
+     two (csrc/diffusion.cu) under the diffusion operator, each 257^3 call
+     profiled once; the generic coarse assembly timed on the host.
   6. path 8: both golden tables through
      ``ndsm_tpu_torch.examples.integration_scaling`` (--warm, mixed,
      components batched; the max metric with default options, the mean
@@ -216,8 +222,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      devices=["cuda"] * 4)))`` at 128^3 and 256^3, mixed, and at 256^3
      over a 2 x 2 (z, y) mesh: the error ratio 3.5-4.5, against the same
      operator's unsharded 256^3 solve on the card (cycles within 1,
-     max|u_sh - u| <= 5e-9 max|u|), no kernel, no plain version and no
-     plain sharded route launched, the messages and bytes, the warm walls
+     max|u_sh - u| <= 5e-9 max|u|), no Poisson kernel, no plain version
+     and no plain sharded route launched (13b launches the diffusion
+     operator's own kernels on the blocks), the messages and bytes, the warm walls
      beside path 7/7b's, the 256^3 z-mesh solve profiled.  Path 13c: the
      reduced drivers under the spec, Poisson, fp32, Ax: ``vcycle`` and
      ``two_grid`` (level 1 sharded) at 256^3, ``one_grid`` at 64^3, each
@@ -1921,6 +1928,80 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
                                first_name="defect_sharded_f64", ns=1, work=work)
 
 
+DIFFUSION = ("diffusion_sweep", "diffusion_residual")
+
+
+def phase_diffusion_kernels(stats: Stats):
+    """``DiffusionOperator``'s kernels (ops/diffusion.py, csrc/diffusion.cu)
+    against their plain versions on the card, bitwise: float32 and float64,
+    all-Neumann, all-Dirichlet and mixed faces, both colour flips, a
+    stratified and a random positive coefficient, at 257^3, 129^3,
+    65x64x63 and 2x3x5.  Then timed at 257^3 (all-Neumann, the stratified
+    coefficient of ``diffusion3d.strat257``) beside their plain versions:
+    the float32 sweep (what the V-cycles run) and the float64 residual (the
+    outer defect) as the table's rows, the float64 sweep and the float32
+    residual as further lines.  Bytes: u, rhs and a read once and the
+    result written once (16 B/point in float32, 32 in float64); operations
+    38 a point a sweep, 34 a residual."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ndsm_tpu_torch.ops import diffusion, stencils
+
+    rng = np.random.default_rng(21)
+    bcs_sets = ((("N", "N"),) * 3, (("D", "D"),) * 3, (("D", "N"), ("N", "D"), ("D", "N")))
+    for shape in ((257, 257, 257), (129, 129, 129), (65, 64, 63), (2, 3, 5)):
+        for dtype in (torch.float32, torch.float64):
+            u, rhs = (torch.as_tensor(rng.standard_normal(shape), device="cuda").to(dtype)
+                      for _ in range(2))
+            z = torch.linspace(0.0, 1.0, shape[0], dtype=torch.float64, device="cuda")
+            coefs = {"stratified": torch.exp(-math.log(20.0) * z).to(dtype).view(-1, 1, 1)
+                     .expand(shape).contiguous(),
+                     "random": (0.5 + torch.as_tensor(rng.random(shape), device="cuda"))
+                     .to(dtype)}
+            w, _ = stencils.stencil_weights([1.0 / (n - 1) for n in shape], dtype)
+            for bcs in bcs_sets:
+                for kind, a in coefs.items():
+                    what = f"{'x'.join(map(str, shape))} {str(dtype)[6:]} {bcs} {kind}"
+                    for flip in (0, 1):
+                        stats.note("diffusion_sweep", *compare(
+                            f"diffusion_sweep {what} flip {flip}",
+                            diffusion.diffusion_sweep(u, rhs, a, w, bcs, flip),
+                            diffusion.diffusion_sweep_plain(u, rhs, a, w, bcs, flip)))
+                    stats.note("diffusion_residual", *compare(
+                        f"diffusion_residual {what}", diffusion.diffusion_residual(
+                            u, rhs, a, w, bcs), diffusion.diffusion_residual_plain(
+                            u, rhs, a, w, bcs)))
+            del u, rhs, coefs
+    log("[diffusion] both kernels bitwise their plain versions at 257^3, 129^3, 65x64x63 and "
+        "2x3x5, float32 and float64, three face sets, two coefficients, both flips")
+
+    n = 257
+    shape, nnn = (n, n, n), (("N", "N"),) * 3
+    points = n ** 3
+    for dtype, peak in ((torch.float32, PEAK_F32), (torch.float64, PEAK_F64)):
+        u, rhs = (torch.as_tensor(rng.standard_normal(shape), device="cuda").to(dtype)
+                  for _ in range(2))
+        z = torch.linspace(0.0, 1.0, n, dtype=torch.float64, device="cuda")
+        a = torch.exp(-math.log(20.0) * z).to(dtype).view(-1, 1, 1).expand(shape).contiguous()
+        w, _ = stencils.stencil_weights([1.0 / (n - 1)] * 3, dtype)
+        size = u.element_size()
+        for key, kern, plain, ops_pt in (
+                ("diffusion_sweep", lambda: diffusion.diffusion_sweep(u, rhs, a, w, nnn, 0),
+                 lambda: diffusion.diffusion_sweep_plain(u, rhs, a, w, nnn, 0), 38),
+                ("diffusion_residual", lambda: diffusion.diffusion_residual(u, rhs, a, w, nnn),
+                 lambda: diffusion.diffusion_residual_plain(u, rhs, a, w, nnn), 34)):
+            headline = (key == "diffusion_sweep") == (dtype == torch.float32)
+            nev = stats.timed(key, kern, plain, points, 1,
+                              f"{n}^3 {str(dtype)[6:]} NNN stratified", headline, busy=True,
+                              work=(4 * size * points, ops_pt * points, peak))
+            if nev != 1:
+                raise AssertionError(f"{key}: {nev} device events a call, not 1")
+        del u, rhs, a
+
+
 def phase_dist_paths(ref):
     """Path 4 (vector_potential with dist over a z mesh of two shards) and
     path 4b (over a (z, y) mesh of 2 x 2 shards) on the card, each held to
@@ -2298,8 +2379,11 @@ def phase_operator_paths():
             raise AssertionError(f"path 6 {name}: {got.dtype}, max|cuda - cpu| {d}")
         check_counts(f"path 6 {name}", counts, plain, need)
 
-    # Paths 7 and 7b: injected operators, no kernel.
+    # Paths 7 and 7b: injected operators; Helmholtz launches no kernel, the
+    # diffusion operator its own two and no other.
+    launches7b = None
     for tag, op in (("7", HelmholtzOperator(1.9)), ("7b", DiffusionOperator(coef_xyz))):
+        own = DIFFUSION if tag == "7b" else ()
         errs = {}
         for n in OP_SIZES:
             x, ue, rhs, opts = op_case(tag == "7b", n)
@@ -2316,14 +2400,20 @@ def phase_operator_paths():
             log(f"[path {tag}] solve_poisson_bvp {n}^3 DDD mixed, {type(op).__name__}: "
                 f"cycles {info.cycles}, du {info.du_last:.6e}, warm wall {wall:.4f} s, "
                 f"max|u - exact| {errs[n]:.5e}")
-            if any(counts.values()) or any(plain.values()):
-                raise AssertionError(f"path {tag}: kernels or plain versions ran under the "
-                                     f"operator: {counts} {plain}")
+            if (any(v for k, v in counts.items() if k not in own) or any(plain.values())
+                    or not all(counts[k] > 0 for k in own)):
+                raise AssertionError(f"path {tag}: other kernels, plain versions or not the "
+                                     f"operator's own ran under the operator: {counts} {plain}")
             if n == n_big:
-                log(f"[path {tag}] launches of a warm {n}^3 call: none of the "
-                    f"{len(counts)} kernels (all counts 0), no plain version on the card")
-                profile_solve(f"[path {tag}] {n}^3", solve, 0, "lane_pass")
+                log(f"[path {tag}] launches of a warm {n}^3 call: "
+                    + (", ".join(f"{k} {counts[k]}" for k in own) + ", none of the other "
+                       f"{len(counts) - len(own)} kernels" if own else
+                       f"none of the {len(counts)} kernels (all counts 0)")
+                    + ", no plain version on the card")
+                profile_solve(f"[path {tag}] {n}^3", solve, counts["diffusion_sweep"] if own
+                              else 0, "diffusion" if own else "lane_pass")
                 if tag == "7b":
+                    launches7b = counts
                     # The face terms the operator keeps while a solve runs: a
                     # warm call with them and one forming them in every call,
                     # each with its peak of device memory above its start.
@@ -2353,7 +2443,7 @@ def phase_operator_paths():
                             f"{time.perf_counter() - t0:.4f} s on the host")
             del u
         _order_check(f"[path {tag}]", errs)
-    return launches6
+    return launches6, launches7b
 
 
 # -- paths 8 and 8b: the golden tables and the 2D study through the port's examples
@@ -2892,8 +2982,8 @@ def phase_sharded_operators(dev="cuda", sizes=SH_OP_SIZES):
     devices=["cuda"] * 4)))`` at 128^3 and 256^3 (mixed), and at 256^3
     over a 2 x 2 (z, y) mesh: h^2 convergence, the same operator's
     unsharded 256^3 solve on the card (cycles within 1, max|u_sh - u| <=
-    5e-9 max|u|), no kernel and no plain version launched, no plain sharded
-    route run, the messages and bytes; the warm 256^3 z-mesh solve once
+    5e-9 max|u|), no plain version and no Poisson kernel launched (13b: the
+    diffusion kernels are), no plain sharded route run, the messages and bytes; the warm 256^3 z-mesh solve once
     more under torch.profiler; first one sweep and one residual on the
     blocks bitwise the unsharded ones (``sweep_on_blocks_bitwise``).  ``dev`` "cpu" and smaller ``sizes``
     rehearse the phase without a card."""
@@ -2934,19 +3024,23 @@ def phase_sharded_operators(dev="cuda", sizes=SH_OP_SIZES):
                     f"{where}: cycles {info.cycles}, du {info.du_last:.6e}, warm wall "
                     f"{walls[where]:.4f} s, max|u - exact| {err:.5e}; {msgs['messages']} "
                     f"messages, {msgs['bytes']} bytes between the shards; kernel launches "
-                    f"{sum(counts.values())} (of {len(counts)} kernels), plain versions on the "
+                    f"{sum(counts.values())} (of {len(counts)} kernels; "
+                    f"{', '.join(f'{k} {counts[k]}' for k in DIFFUSION)}), plain versions on the "
                     f"card {sum(plain.values())}, plain sharded routes {sum(routes.values())}")
-                if any(counts.values()) or any(plain.values()) or any(routes.values()):
-                    raise AssertionError(f"path {tag}: a kernel or a Poisson route ran under "
-                                         f"the operator: {counts} {plain} {routes}")
+                own = DIFFUSION if tag == "13b" else ()
+                if (any(v for k, v in counts.items() if k not in own) or any(plain.values())
+                        or any(routes.values()) or not all(counts[k] > 0 for k in own)):
+                    raise AssertionError(f"path {tag}: a Poisson kernel or route, or not the "
+                                         f"operator's own kernels, ran under the operator: "
+                                         f"{counts} {plain} {routes}")
                 us[where] = (u, info)
                 if where == "4 z shards":
-                    errs[n] = err
+                    errs[n], sweeps4 = err, counts["diffusion_sweep"]
             if n != sizes[1]:
                 continue
             profile_solve(f"[path {tag}] {n}^3 over 4 z shards", lambda: solve_poisson_bvp(
                 u0, rhs, (x, x, x), DDD, options=opts, operator=op, device=dev,
-                shard_spec=specs["4 z shards"]), 0, "lane_pass")
+                shard_spec=specs["4 z shards"]), sweeps4, "diffusion" if own else "lane_pass")
 
             def one():
                 return solve_poisson_bvp(u0, rhs, (x, x, x), DDD, options=opts, operator=op,
@@ -3287,13 +3381,14 @@ def main() -> int:
     timed(phase_pass_widths)
     timed(phase_compact_kernels, stats)
     timed(phase_sharded_kernels, stats)
+    timed(phase_diffusion_kernels, stats)
     path1, path1b, path3, path3b, ref1b = timed(phase_main_path)
     path2 = timed(phase_neumann_3d)
     path4, path4b, ref4, ref4b = timed(phase_dist_paths, ref1b)
     path5, path5b, path5c, u5 = timed(phase_sharded_solves)
     path11, path11b, path12 = timed(phase_multiprocess, ref4, u5)
     del ref4, u5
-    path6 = timed(phase_operator_paths)
+    path6, path7b = timed(phase_operator_paths)
     t_new = time.perf_counter()
     timed(phase_sharded_operators)
     path13c = timed(phase_sharded_drivers)
@@ -3321,6 +3416,7 @@ def main() -> int:
         (PATH5B, path5b, "ShardedPoissonBVP 256^3 Ax mixed over a 4 x 2 (z, y) mesh on one "
                          "card"),
         (PATH6, path6, "solve_poisson_bvp 257^3 Ax mixed"),
+        (DIFFUSION, path7b, "solve_poisson_bvp 257^3 DDD mixed, DiffusionOperator(1 + x y z)"),
         (PATH1, path8, "both golden tables, integration_scaling --warm, 22^3-220^3"),
         (PATH8B, path8b, "unit_test_2d_solve, 27x36-675x900 mixed"),
         (PATH1, path9, "vector_potential 220^3 mixed, host_curl"),

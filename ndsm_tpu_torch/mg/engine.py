@@ -40,10 +40,12 @@ What the port changes:
     ``solve_batch``): every op acts per lane;
   * with an injected operator (mg/operator.py, the reference's
     MG_RELAX/MG_RESIDUAL extension point, ndsm_multigrid_core.f90:
-    106-136) no level has a kernel route: every sweep and residual is the
-    operator's ``relax`` / ``residual``, plain tensor code, as the JAX
-    engine runs an operator on its masked-XLA path (the kernels encode
-    the Poisson stencil).  Each call runs inside the span
+    106-136) no level has a Poisson kernel route: every sweep and residual
+    is the operator's ``relax`` / ``residual``, as the JAX engine runs an
+    operator on its masked-XLA path (the engine's kernels encode the
+    Poisson stencil).  They run the operator's own code: plain tensor
+    code, or kernels of its own (``DiffusionOperator`` on 3D CUDA levels,
+    ops/diffusion.py).  Each call runs inside the span
     ``ndsm.op.relax`` or ``ndsm.op.residual`` (utils/profiling.py).  Its
     direct coarse solve uses ``operator.coarse_matrix``, or relaxes to
     ``ex_tol`` when that is None.

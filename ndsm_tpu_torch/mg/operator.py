@@ -32,10 +32,12 @@ Design notes for PyTorch:
   * PyTorch runs eagerly, so there is no trace and no ``jit``: each
     method runs its tensor ops on the device of ``u`` as they are
     called.  The engine's CUDA kernels encode the Poisson stencil and
-    stay reserved for the default (``operator=None``) engine; an injected
-    operator runs as plain tensor code, one kernel per elementwise op.
-    An operator whose ``relax`` launches a kernel of its own gets kernel
-    performance with no engine changes.
+    stay reserved for the default (``operator=None``) engine.  An operator
+    whose ``relax`` launches a kernel of its own gets kernel performance
+    with no engine changes: ``DiffusionOperator`` launches those of
+    ops/diffusion.py (``csrc/diffusion.cu``) on 3D CUDA levels.  The others
+    here, and a user's own operator, run as plain tensor code, one kernel
+    per elementwise op.
 
 Contract for implementers:
 
@@ -100,12 +102,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import stencils
+from ..ops import diffusion, stencils
 from ..ops.stencils import BCS
 from ..utils import profiling
 from ..utils.caching import BoundedCache
@@ -293,11 +296,23 @@ class DiffusionOperator(MGOperator):
     ``coef`` is compared and hashed by identity (it keys the engine and
     BVP caches): reuse one function object per operator.
 
-    Within ``held()`` (each solve of ``PoissonBVP``) the face
-    coefficients and ``den`` of a level are computed once per (shape,
-    dtype, device, weights, window) and kept until the solve returns: the port
-    runs eagerly, so without them every relax and residual call would
-    evaluate ``coef`` again.  Each build counts one ``ndsm.op.terms``
+    Routes.  On a 3D level ``relax`` and ``residual`` call the wrappers
+    of ops/diffusion.py, which on a CUDA tensor launch one kernel each
+    (``csrc/diffusion.cu``: the sweep of both colours in one launch, the
+    face coefficients and ``den`` formed in registers from the coefficient)
+    and on a CPU tensor run the plain version, bitwise the kernel.  Only the
+    all-Neumann mean pinning stays tensor code (``stencils.subtract_mean``).
+    A level of another number of axes (no benchmark cell; tests) runs the
+    plain version's ndim-generic code, as the engine keeps 2D extents
+    below 3 off its kernels.  A window's colours are its global offsets'
+    parity (``flip``), so the sharded engine's blocks take the kernels too.
+
+    Within ``held()`` (each solve of ``PoissonBVP``) a level's terms are
+    computed once per (shape, dtype, device, weights, window) and kept
+    until the solve returns: the coefficient at the nodes, and on the
+    plain route its face coefficients and ``den`` too.  The port runs
+    eagerly, so without them every relax and residual call would evaluate
+    ``coef`` again.  Each build counts one ``ndsm.op.terms``
     (utils/profiling.py).  Outside it each call computes them afresh,
     so an operator held by the engine and BVP caches keeps nothing on
     the device between solves.  The numbers are the same either way.
@@ -330,50 +345,46 @@ class DiffusionOperator(MGOperator):
                 self._terms.clear()
 
     def _level_terms(self, u: torch.Tensor, w, window=None):
-        """(halves, den) of ``u``'s level, or of its block in ``window``:
-        ``halves[ax] = (a_lo, a_hi)``."""
+        """``(a, terms)`` of ``u``'s level, or of its block in ``window``:
+        the coefficient at the nodes (contiguous) and, where the operator
+        runs plain code (a CPU tensor, or not 3D), its face coefficients and
+        diagonal (``diffusion.with_diagonal`` of :func:`_diffusion_halves`);
+        None on the kernel route."""
         key = (tuple(u.shape), u.dtype, str(u.device), w, window)
         terms = self._terms.get(key)
         if terms is None:
             profiling.count(profiling.OP_TERMS)
-            halves = _diffusion_halves(tuple(u.shape), self.coef, u.dtype, u.device, window)
-            den = None
-            for ax, (alo, ahi) in enumerate(halves):
-                t = (alo + ahi) * w[ax]
-                den = t if den is None else den + t
-            terms = (halves, den)
+            shape = tuple(u.shape)
+            a = _coefficient(shape, self.coef, u.dtype, u.device, window)
+            terms = (a, None if u.ndim == 3 and u.device.type == "cuda" else
+                     diffusion.with_diagonal(
+                         _diffusion_halves(shape, self.coef, u.dtype, u.device, window), w))
             if self._depth:
                 self._terms.put(key, terms)
         return terms
 
     def relax(self, u, rhs, dq, bcs, window=None):
         bcs = stencils.validate_bcs(bcs, u.ndim)
-        w, _ = stencils.stencil_weights(dq, u.dtype)
-        halves, den = self._level_terms(u, w, window)
-        for mask in stencils.color_masks(tuple(u.shape), bcs, u.device, _offsets(window)):
-            num = None
-            for ax in range(u.ndim):
-                lo, hi = stencils._neighbors(u, ax)
-                alo, ahi = halves[ax]
-                t = (alo * lo + ahi * hi) * w[ax]
-                num = t if num is None else num + t
-            u = torch.where(mask, (num - rhs) / den, u)
+        w = _weights(tuple(map(float, dq)), u.dtype)
+        a, terms = self._level_terms(u, w, window)
+        flip = sum(_offsets(window)) % 2
+        if u.ndim == 3:
+            u = diffusion.diffusion_sweep(u.contiguous(), rhs.contiguous(), a, w, bcs, flip,
+                                          terms)
+        else:
+            u = diffusion.sweep_terms(u, rhs, terms, w, bcs, flip)
         if window is None and self.is_singular(bcs):
             u = stencils.subtract_mean(u)
         return u
 
     def residual(self, u, rhs, dq, bcs, window=None):
         bcs = stencils.validate_bcs(bcs, u.ndim)
-        w, _ = stencils.stencil_weights(dq, u.dtype)
-        halves, _ = self._level_terms(u, w, window)
-        out = None
-        for ax in range(u.ndim):
-            lo, hi = stencils._neighbors(u, ax)
-            alo, ahi = halves[ax]
-            term = (ahi * (hi - u) - alo * (u - lo)) * w[ax]
-            out = term if out is None else out + term
-        r = rhs - out
-        return r.masked_fill(~stencils.interior_mask(tuple(u.shape), bcs, u.device), 0.0)
+        w = _weights(tuple(map(float, dq)), u.dtype)
+        a, terms = self._level_terms(u, w, window)
+        if u.ndim == 3:
+            return diffusion.diffusion_residual(u.contiguous(), rhs.contiguous(), a, w, bcs,
+                                                terms)
+        return diffusion.residual_terms(u, rhs, terms, w, bcs)
 
     def coarse_matrix(self, shape, dq, bcs):
         from .coarse import build_coarse_matrix_from_operator
@@ -383,6 +394,13 @@ class DiffusionOperator(MGOperator):
 
     def is_singular(self, bcs):
         return stencils.is_all_neumann(bcs)
+
+
+@functools.lru_cache(maxsize=256)
+def _weights(dq: tuple, dtype: torch.dtype) -> tuple:
+    """``stencils.stencil_weights(dq, dtype)``'s weights, kept: a solve asks
+    for the same few in every relax and residual call."""
+    return stencils.stencil_weights(dq, dtype)[0]
 
 
 def _offsets(window: Optional[Window]):
@@ -400,13 +418,9 @@ def _unit_nodes(n: int, dtype: torch.dtype) -> np.ndarray:
     return np.append(np.arange(n - 1, dtype=npdt) / npdt(n - 1), npdt(1.0))
 
 
-def _diffusion_halves(shape, coef, dtype: torch.dtype, device, window=None):
-    """Face coefficients ``(a_lo, a_hi)`` per axis: evaluate ``coef`` on
-    the level's normalized node grid (in ``window``: the global grid's
-    nodes of the block), then arithmetic-mean to the half-points with the
-    same index reflection as the stencil reads (so the mirrored boundary
-    half-coefficient matches the mirrored neighbor; a cut face's are
-    wrong, but its plane is frozen and dropped)."""
+def _coefficient(shape, coef, dtype: torch.dtype, device, window=None) -> torch.Tensor:
+    """``coef`` on the level's normalized node grid (in ``window``: the
+    global grid's nodes of the block), as a contiguous tensor of ``shape``."""
     if window is None:
         nodes = [_unit_nodes(n, dtype) for n in shape]
     else:
@@ -416,9 +430,15 @@ def _diffusion_halves(shape, coef, dtype: torch.dtype, device, window=None):
         *[torch.as_tensor(v, device=device) for v in nodes],
         indexing="ij",
     )
-    a = torch.as_tensor(coef(*coords), dtype=dtype, device=device).broadcast_to(shape)
-    halves = []
-    for ax in range(len(shape)):
-        lo, hi = stencils._neighbors(a, ax)
-        halves.append((0.5 * (a + lo), 0.5 * (a + hi)))
-    return halves
+    return torch.as_tensor(coef(*coords), dtype=dtype, device=device).broadcast_to(
+        shape).contiguous()
+
+
+def _diffusion_halves(shape, coef, dtype: torch.dtype, device, window=None):
+    """Face coefficients ``(a_lo, a_hi)`` per axis of the plain route: the
+    arithmetic mean of :func:`_coefficient` to the half-points with the same
+    index reflection as the stencil reads (``diffusion.face_coefficients``;
+    so the mirrored boundary half-coefficient matches the mirrored neighbor;
+    a cut face's are wrong, but its plane is frozen and dropped).  The
+    kernels form the same values from the coefficient in registers."""
+    return diffusion.face_coefficients(_coefficient(shape, coef, dtype, device, window))

@@ -14,7 +14,7 @@ version ran on a CUDA tensor.
 """
 
 from ..utils.profiling import counter, reset
-from . import compact, df, df_sharded, fused, v2d, zc, zc_sharded
+from . import compact, df, df_sharded, diffusion, fused, v2d, zc, zc_sharded
 from .fused import (
     fused_smooth_3d,
     fused_smooth_3d_batched,
@@ -45,6 +45,7 @@ _FUSED = "ndsm_tpu_torch/csrc/fused_smooth.cu"
 _COMPACT = "ndsm_tpu_torch/csrc/compact_smooth.cu"
 _SHARDED = "ndsm_tpu_torch/csrc/zc_sharded.cu"
 _DEFECT = "ndsm_tpu_torch/csrc/defect.cu"
+_DIFFUSION = "ndsm_tpu_torch/csrc/diffusion.cu"
 
 #: (name, wrapper, plain version, replaced TPU kernel, CUDA source).  The
 #: 3D red-black wrappers are calls of one lane kernel family (B lanes or
@@ -56,7 +57,9 @@ _DEFECT = "ndsm_tpu_torch/csrc/defect.cu"
 #: (parallel/sm_engine.py) close the list: the sweeps on a halo-extended
 #: block with and without the fused residual, and the shard's defect
 #: without and with the pending correction, each on a z-partitioned mesh
-#: and (``_zy``, with its own counter) on the 2-D (z, y) mesh.
+#: and (``_zy``, with its own counter) on the 2-D (z, y) mesh.  Last,
+#: ``DiffusionOperator``'s sweep and residual (mg/operator.py), which replace
+#: no TPU kernel: the JAX package runs that operator on XLA.
 KERNELS = (
     ("zc_smooth_3d", zc.zc_smooth_3d, zc.zc_smooth_3d_plain,
      "ndsm_tpu/ops/pallas_zc.py:740", _FUSED),
@@ -110,6 +113,10 @@ KERNELS = (
     ("df_update_residual_sharded_3d_zy", df_sharded.df_update_residual_sharded_3d_zy,
      df_sharded.df_update_residual_sharded_3d_zy_plain, "ndsm_tpu/ops/pallas_df.py:922",
      _DEFECT),
+    ("diffusion_sweep", diffusion.diffusion_sweep, diffusion.diffusion_sweep_plain,
+     "none (XLA in JAX)", _DIFFUSION),
+    ("diffusion_residual", diffusion.diffusion_residual, diffusion.diffusion_residual_plain,
+     "none (XLA in JAX)", _DIFFUSION),
 )
 
 

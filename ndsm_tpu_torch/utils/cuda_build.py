@@ -76,6 +76,10 @@ _SIGNATURES = {
     "ndsm_defect_sharded_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
     "ndsm_defect_sharded_tile_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
     "ndsm_defect_sharded_tile_blocks": (_I, _I, _I),
+    "ndsm_diffusion_sweep_f32": (_P,) * 4 + (_I,) * 5 + (_F,) * 3 + (_P,),
+    "ndsm_diffusion_sweep_f64": (_P,) * 4 + (_I,) * 5 + (_D,) * 3 + (_P,),
+    "ndsm_diffusion_residual_f32": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    "ndsm_diffusion_residual_f64": (_P,) * 4 + (_I,) * 4 + (_D,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

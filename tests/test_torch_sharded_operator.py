@@ -18,8 +18,10 @@ Tolerances:
   * one sweep, and the residual, of each built-in operator on the blocks:
     bitwise the unsharded operator in float64, on a level whose blocks
     start at odd offsets (36 rows over 4 shards), on z and (z, y) meshes;
-  * no wrapper of ``ops.KERNELS`` is called under an operator (each is
-    replaced by a counter; the same solve without an operator calls them);
+  * no wrapper of ``ops.KERNELS`` is called under ``HelmholtzOperator``
+    (each is replaced by a counter; the same solve without an operator
+    calls the Poisson ones; ``DiffusionOperator``'s own kernels are
+    tests/test_torch_diffusion_kernel.py's);
   * ``solve_batch`` lane by lane, ``solve_checkpointed`` and
     ``solve_poisson_bvp(..., shard_spec=...)``: bitwise the spec route's
     own ``solve`` (the same engine);
@@ -45,7 +47,8 @@ from ndsm_tpu_torch import (
     solve_poisson_bvp,
 )
 from ndsm_tpu_torch.mg.operator import MGOperator, Window
-from ndsm_tpu_torch.ops import compact, df, df_sharded, fused, stencils, v2d, zc, zc_sharded
+from ndsm_tpu_torch.ops import (compact, df, df_sharded, diffusion, fused, stencils, v2d, zc,
+                                zc_sharded)
 from ndsm_tpu_torch.parallel import collectives as C
 from ndsm_tpu_torch.parallel.shard import ShardSpec, make_mesh, make_mesh_nd
 from ndsm_tpu_torch.parallel.sm_engine import _OperatorBVP
@@ -193,7 +196,7 @@ def _count_kernel_calls(monkeypatch):
     wrappers = {}
     for k in ops.KERNELS:  # (zc_smooth_3d and fused_smooth_3d are one wrapper)
         wrappers.setdefault(id(k[1]), k[0])
-    for mod in (compact, df, df_sharded, fused, v2d, zc, zc_sharded):
+    for mod in (compact, df, df_sharded, diffusion, fused, v2d, zc, zc_sharded):
         for attr, fn in list(vars(mod).items()):
             if callable(fn) and id(fn) in wrappers:
                 name = wrappers[id(fn)]
@@ -267,18 +270,21 @@ def test_operator_entry_points_under_a_spec(tmp_path):
 
 def test_windowed_face_terms_are_keyed_by_window():
     """Two blocks of one shape at different offsets have different face
-    coefficients (the held cache keys on the window)."""
+    coefficients (the held cache keys on the window).  ``_level_terms`` is
+    (coefficient, (halves, den)) on the CPU route."""
     op = DiffusionOperator(_poly_coef)
     u = torch.zeros((4, 5, 5), dtype=torch.float64)
     w = (1.0, 1.0, 1.0)
     with op.held():
-        a = op._level_terms(u, w, Window((16, 5, 5), (0, 0, 0)))[1]
-        b = op._level_terms(u, w, Window((16, 5, 5), (8, 0, 0)))[1]
-        whole = op._level_terms(torch.zeros((16, 5, 5), dtype=torch.float64), w)[1]
+        ca, (_, a) = op._level_terms(u, w, Window((16, 5, 5), (0, 0, 0)))
+        cb, (_, b) = op._level_terms(u, w, Window((16, 5, 5), (8, 0, 0)))
+        cw, (_, whole) = op._level_terms(torch.zeros((16, 5, 5), dtype=torch.float64), w)
         assert len(op._terms) == 3
     assert not torch.equal(a, b)
     # interior planes of each block are the whole level's planes
     assert torch.equal(a[1:-1], whole[1:3]) and torch.equal(b[1:-1], whole[9:11])
+    # the coefficient is the global nodes': every plane of a block
+    assert torch.equal(ca, cw[0:4]) and torch.equal(cb, cw[8:12])
 
 
 def test_operator_without_a_window_raises():
