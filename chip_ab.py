@@ -1,5 +1,5 @@
-"""Walls of the compact and sharded paths on one card, for comparing two
-checkouts in one call, and the per-shard defect's own share of them.
+"""Walls of the compact and sharded paths on one card, and the sharded
+engine's collectives, for comparing two checkouts in one call.
 
     python3 chip_ab.py walls TREE TAG
         With TREE's own ``chip_smoke.py`` helpers and kernels (TREE a
@@ -12,12 +12,6 @@ checkouts in one call, and the per-shard defect's own share of them.
         (seconds; paths 5 and 5b have no phases and print the wall
         alone).  Run it in separate processes, alternating the two
         checkouts (P C P C ...), since a process's host moves its walls.
-    python3 chip_ab.py defect
-        In this checkout: paths 4 and 4b (warm 220^3), with every
-        per-shard defect call timed inside the path (host time of its
-        wrapper, CUDA events around it), the tile and the previous design
-        (``df_sharded._defect_cuda(..., previous=True)``) in alternation,
-        three calls each; one ``AB path P tile|previous`` line each.
     python3 chip_ab.py layer TREE
         In this checkout: the collectives of paths 5 and 5b's engine
         (256^3 over a z mesh of 4 / a 4 x 2 mesh on the card; its
@@ -176,55 +170,9 @@ def layer(tree: str) -> None:
                 flush=True)
 
 
-def defect() -> None:
-    sys.path.insert(0, HERE)
-    os.chdir(HERE)
-    import torch
-
-    import chip_smoke as cs
-    from ndsm_tpu_torch.ops import df_sharded
-
-    orig = df_sharded._defect_cuda
-    state = {"previous": False, "host": 0.0, "n": 0, "ev": []}
-
-    def timed(*a, **k):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        out = orig(*a, previous=state["previous"], **k)
-        e1.record()
-        state["host"] += time.perf_counter() - t0
-        state["n"] += 1
-        state["ev"].append((e0, e1))
-        return out
-
-    df_sharded._defect_cuda = timed
-    d4, d4b = _dists()
-    paths = {"4": d4, "4b": d4b}
-    for d in paths.values():
-        cs.run(22, "off", dist=d)
-        cs.run(220, "off", dist=d)
-    rows = {}
-    for rep in range(3):
-        for prev in ((False, True) if rep % 2 == 0 else (True, False)):
-            for p, d in paths.items():
-                state.update(previous=prev, host=0.0, n=0, ev=[])
-                w, _, _, _ = cs.run(220, "off", dist=d)
-                torch.cuda.synchronize()
-                dev = sum(a.elapsed_time(b) for a, b in state["ev"])
-                rows.setdefault((p, prev), []).append((w, state["n"], state["host"] * 1e3, dev))
-    for (p, prev), v in rows.items():
-        print(f"AB path {p} {'previous' if prev else 'tile'}: calls {v[0][1]}; wall "
-              + " ".join(f"{x[0]:.4f}" for x in v) + " s; defect host ms a path call "
-              + " ".join(f"{x[2]:.3f}" for x in v) + "; defect event ms "
-              + " ".join(f"{x[3]:.3f}" for x in v), flush=True)
-
-
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "walls":
         walls(sys.argv[2], sys.argv[3])
-    elif len(sys.argv) == 2 and sys.argv[1] == "defect":
-        defect()
     elif len(sys.argv) == 3 and sys.argv[1] == "layer":
         layer(sys.argv[2])
     else:

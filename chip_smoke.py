@@ -20,17 +20,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        - the one-lane calls of the 3D red-black pass (zc_smooth_3d, which
          is also fused_smooth_3d, and the residual and correction forms)
          at path 1b's 55^3, 27^3, 13^3 and 6^3 levels, 221x220x220 and
-         2x3x5; at 220^3 timed against the previous design (2*ns
-         half-sweep launches + a residual launch) in turns, with device
-         busy times and the share of the bound ("[design]");
+         2x3x5;
        - the lane forms (the three forms on the three component lanes
          stacked) at every level of path 1 (220^3 down to 6^3) and 2x3x5,
          also against three per-lane zc kernel calls and with the Az lane
-         frozen; at 220^3 and 110^3 timed, and against the previous design
-         in turns;
+         frozen; at 220^3 and 110^3 timed;
        - the pass plan's measurements ("[width]"): at every level, three
-         lanes, the half-sweeps, the plan as fixed and marching passes of
-         width 1, 2 and 3 (device busy time, each bitwise);
+         lanes, the plan as fixed and marching passes of width 1, 2 and 3
+         (device busy time, each bitwise against the plain lane form);
        - the 2D smoother (v2d) at every level it smooths on the chi faces
          of a 220^3 and a 512^3 box (220^2 down to 6^2, 512^2 down to
          4^2), (221, 220), the one-block/cluster boundaries (168^2,
@@ -44,8 +41,6 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          110^2, 220^2 and 512^2 lanes,
          with device busy times ("[design]"); the plan's cluster size
          against larger ones at six 220^2 and 512^2 lanes ("[v2d C]");
-       - the defect's z-marching tile against the previous design (one
-         thread a point) in turns at 220^3, zero-rhs + update ("[design]");
        - the all-Neumann 3D smoother (one launch a call: a cooperative
          grid, or one block for a level that fits its shared memory), each
          shape's plan printed ("[mean plan]"), bitwise at every level of
@@ -53,9 +48,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          and 5, on the plan's route and on the grid route where the plan
          takes the block route; timed at 220^3, 128^3, 256^3 and 16^3 with
          each call's host enqueue and device events (more than one device
-         event a call fails the phase), and against the previous
-         design (4 ns + 1 launches) in turns at 256^3, 128^3, 32^3 and 16^3
-         ("[design]");
+         event a call fails the phase);
        - the colour-split smoother (compact_smooth_3d: ceil(ns / w)
          launches of the halves form of the pass, "[compact plan]" lines
          for every level of path 3) with its split and merge passes at
@@ -65,9 +58,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
          trip; the lane form on the three stacked lanes at 220^3 and 110^3
          against three one-lane calls and with the Az lane frozen; the
          whole dense-interface call (split, sweeps, merge) timed beside
-         zc_smooth_3d; at 220^3 (one lane, three lanes) the pass against
-         the previous design (2 ns half-sweep launches) in turns
-         ("[design]");
+         zc_smooth_3d;
        - ``DiffusionOperator``'s sweep and residual (csrc/diffusion.cu)
          bitwise at 257^3, 129^3, 65x64x63 and 2x3x5, float32 and float64,
          three face sets, two coefficients, both colour flips; timed at
@@ -118,12 +109,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      B10/B10y are one launch a call of the pass's shard form ("[shard
      plan]": its tile, window and grid at level 0; more than one device
      event a call fails the phase).  Timed at the level 0
-     of paths 4 and 4b (shard 0 with its halo), and against the previous
-     design (2 ns half-sweep launches + 1 residual launch, also held
-     bitwise to the pass) in turns ("[design]").  B11/B11y are one launch
-     of the shard form of the defect's z-marching tile, timed there too
-     and against the previous design (one thread a point of the extended
-     block, also held bitwise to the tile) in turns ("[design]").
+     of paths 4 and 4b (shard 0 with its halo).  B11/B11y are one launch
+     of the shard form of the defect's z-marching tile, timed there too.
   4. path 2: a 3D all-Neumann mixed ``PoissonBVP.solve`` on
      u = cos(pi x) cos(pi y) cos(pi z) at 128^3 and 256^3; ierr 0,
      zc_smooth_mean_3d launched, no plain version on the card, and the
@@ -396,13 +383,11 @@ def device_ms(fn, reps: int = 5):
             sum(e.count for e in best) / reps)
 
 
-def device_ms_split(first, second, name, reps: int = 5, first_name=None):
+def device_ms_split(first, second, name, reps: int = 5):
     """Device busy ms and events of one ``first()`` and one ``second()``,
     as ``device_ms``, from one profile over ``reps`` calls of
     each: the events whose kernel name holds ``name`` are ``second``'s,
-    the rest ``first``'s (with ``first_name``: only those whose name holds
-    it; the calls' other kernels, such as a reduction both launch, are
-    then left out)."""
+    the rest ``first``'s."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -423,9 +408,7 @@ def device_ms_split(first, second, name, reps: int = 5, first_name=None):
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-        parts = [[e for e in dev if (name in e.key) == mine
-                  and (mine or first_name is None or first_name in e.key)]
-                 for mine in (False, True)]
+        parts = [[e for e in dev if (name in e.key) == mine] for mine in (False, True)]
         if fewest(parts) > fewest(best):
             best = parts
         if fewest(best) >= reps:  # every call launches at least once
@@ -491,39 +474,6 @@ class Stats:
         return None
 
 
-def previous_sweeps(u, cor, rhs, dq, bcs_list, ns, residual=False):
-    """The 3D red-black lane kernels' previous design (PRs 1-6), for
-    timing beside the pass: 2*ns half-sweep launches over the (B, nz, ny,
-    nx) stack, the first out of place (reading u + cor), then one residual
-    launch.  Returns u' (and r)."""
-    import torch
-
-    from ndsm_tpu_torch.ops import stencils, zc
-    from ndsm_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.kernels()
-    nb, nz, ny, nx = (int(s) for s in u.shape)
-    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    color, dmask, act = zc._lane_args(bcs_list, (True,) * nb)
-    out = torch.empty_like(u)
-    stream = torch.cuda.current_stream().cuda_stream
-    rcs = [lib.ndsm_lane_half_oop_f32(
-        u.data_ptr(), None if cor is None else cor.data_ptr(), None, rhs.data_ptr(),
-        out.data_ptr(), nb, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream)]
-    for k in range(1, 2 * ns):
-        rcs.append(lib.ndsm_lane_half_inplace_f32(
-            out.data_ptr(), rhs.data_ptr(), nb, nz, ny, nx, color, dmask, act, k % 2,
-            wz, wy, wx, w0, stream))
-    if not residual:
-        cuda_build.check(max(rcs), "previous design")
-        return out
-    r = torch.empty_like(u)
-    rcs.append(lib.ndsm_lane_residual_f32(out.data_ptr(), rhs.data_ptr(), r.data_ptr(), nb, nz,
-                                          ny, nx, dmask, act, wz, wy, wx, stream))
-    cuda_build.check(max(rcs), "previous design")
-    return out, r
-
-
 # The defect at odd extents: partial column tiles in y and x, a last z chunk
 # shorter than the others, the smallest extents.
 DF_ODD = ((221, 219, 37), (37, 45, 29), (2, 3, 5))
@@ -552,18 +502,16 @@ def _plan_text(p):
             f"grid {p.grid}")
 
 
-def compare_kernel_designs(key, label, pts, plain, previous, kern, name, first_name=None,
-                           ns=MS, work=None):
+def compare_kernel_designs(key, label, pts, plain, previous, kern, name):
     """A kernel beside its previous design on the same inputs, timed in
     turns (plain, previous, new, new, previous, plain; CUDA events, min of
     two medians), then each design's device busy time under torch.profiler
-    (the events whose name holds ``name`` are the new kernel's, those
-    holding ``first_name`` the previous one's), the host's enqueue time of
-    a call of each, and the share of the bound (``work`` as in ``bound``)."""
+    (the events whose name holds ``name`` are the new kernel's), the host's
+    enqueue time of a call of each, and the share of the bound."""
     t = [time_ms(f) for f in (plain, previous, kern, kern, previous, plain)]
     pms, oms, kms = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
-    (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, name, first_name=first_name)
-    bms, by = bound(key, pts, ns, work)
+    (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, name)
+    bms, by = bound(key, pts, MS)
     ohost, khost = enqueue_ms(previous), enqueue_ms(kern)
     log(f"[design] {key:32s} {label}: previous {oms:.4f} ms, busy {obusy:.4f} ms ({oev:.0f} "
         f"events, host enqueue {ohost:.4f} ms a call); new {kms:.4f} ms, busy {kbusy:.4f} ms "
@@ -571,29 +519,6 @@ def compare_kernel_designs(key, label, pts, plain, previous, kern, name, first_n
         f"{obusy / kbusy:.2f}x, events {oms / kms:.2f}x faster; plain {pms:.4f} ms; bound "
         f"{bms:.4f} ms ({by}) = {100 * bms / kbusy:.1f}% of the new busy time, "
         f"{100 * bms / obusy:.1f}% of the previous; new faster: {kbusy < obusy}")
-
-
-def compare_designs(key, label, shape, nb, plain, previous, kern):
-    """The pass beside the previous design on the same inputs, timed in
-    turns (plain, previous, pass, pass, previous, plain; CUDA events, min
-    of two medians), then each design's device busy time under
-    torch.profiler, and the share of the bound."""
-    from ndsm_tpu_torch.ops import zc
-
-    pts = nb * math.prod(shape)
-    t = [time_ms(f) for f in (plain, previous, kern, kern, previous, plain)]
-    pms, oms, kms = min(t[0], t[5]), min(t[1], t[4]), min(t[2], t[3])
-    (obusy, oev), (kbusy, kev) = device_ms_split(previous, kern, "lane_pass")
-    bms, by = bound(key, pts, MS)
-    res = "residual" in key
-    plan = zc.pass_plan(shape, MS, nb, res)
-    log(f"[design] {key:32s} {label}: previous ({2 * MS}{' + 1' if res else ''} launches) "
-        f"{oms:.4f} ms, busy {obusy:.4f} ms ({oev:.0f} events); pass ({len(plan)} launches, "
-        f"widths {[p.width for p in plan]}) {kms:.4f} ms, busy {kbusy:.4f} ms ({kev:.0f} "
-        f"events); busy {obusy / kbusy:.2f}x, events {oms / kms:.2f}x faster; plain "
-        f"{pms:.4f} ms; bound {bms:.4f} ms ({by}) = {100 * bms / kbusy:.1f}% of the pass's busy "
-        f"time, {100 * bms / obusy:.1f}% of the previous design's; pass faster: "
-        f"{kbusy < obusy}")
 
 
 def log_pass_plans(h, nb=3):
@@ -789,28 +714,6 @@ def phase_kernels(stats: Stats):
         f"{SWEEPS}); the defect's four forms at {shape[0]}^3 bitwise too")
     del u64, rhs64
 
-    # -- the one-lane calls against the previous design, in turns (220^3)
-    shape, dq = h.shapes[0], h.dq[0]
-    u, rhs, cor = f32(shape), f32(shape), f32(shape)
-    bcs = BC_SETS["Ax"]
-    one = ((bcs,), u[None], rhs[None], cor[None])
-    compare_designs(
-        "zc_smooth_3d", "220^3 Ax", shape, 1,
-        lambda: zc.zc_smooth_3d_plain(u, rhs, dq, bcs, MS),
-        lambda: previous_sweeps(one[1], None, one[2], dq, one[0], MS),
-        lambda: zc.zc_smooth_3d(u, rhs, dq, bcs, MS))
-    compare_designs(
-        "zc_smooth_residual_3d", "220^3 Ax", shape, 1,
-        lambda: zc.zc_smooth_residual_3d_plain(u, rhs, dq, bcs, MS),
-        lambda: previous_sweeps(one[1], None, one[2], dq, one[0], MS, residual=True),
-        lambda: zc.zc_smooth_residual_3d(u, rhs, dq, bcs, MS))
-    compare_designs(
-        "zc_smooth_cor_3d", "220^3 Ax", shape, 1,
-        lambda: zc.zc_smooth_cor_3d_plain(u, cor, rhs, dq, bcs, MS),
-        lambda: previous_sweeps(one[1], one[3], one[2], dq, one[0], MS),
-        lambda: zc.zc_smooth_cor_3d(u, cor, rhs, dq, bcs, MS))
-    del u, rhs, cor, one
-
     # -- the lane kernels: the three component lanes of the batched solve,
     # timed at 220^3 and 110^3, checked at every level of path 1
     lanes = tuple(BC_SETS.values())
@@ -884,22 +787,6 @@ def phase_kernels(stats: Stats):
                     lambda: fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, MS),
                     lambda: fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, MS),
                     pts, MS, lab, head)
-        # the pass beside the previous design's half-sweep launches
-        compare_designs(
-            "fused_smooth_3d_batched", lab, shape, 3,
-            lambda: fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, MS),
-            lambda: previous_sweeps(u, None, rhs, dq, lanes, MS),
-            lambda: fused.fused_smooth_3d_batched(u, rhs, dq, lanes, MS))
-        compare_designs(
-            "fused_smooth_residual_3d_batched", lab, shape, 3,
-            lambda: fused.fused_smooth_residual_3d_batched_plain(u, rhs, dq, lanes, MS),
-            lambda: previous_sweeps(u, None, rhs, dq, lanes, MS, residual=True),
-            lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS))
-        compare_designs(
-            "fused_smooth_cor_3d_batched", lab, shape, 3,
-            lambda: fused.fused_smooth_cor_3d_batched_plain(u, cor, rhs, dq, lanes, MS),
-            lambda: previous_sweeps(u, cor, rhs, dq, lanes, MS),
-            lambda: fused.fused_smooth_cor_3d_batched(u, cor, rhs, dq, lanes, MS))
         # the lane call beside the three per-lane calls it replaces
         lms, zms = time_pair(
             lambda: fused.fused_smooth_residual_3d_batched(u, rhs, dq, lanes, MS),
@@ -960,8 +847,7 @@ def phase_kernels(stats: Stats):
 
     # -- the v2d lane kernel beside the previous design (one block a lane in
     # global memory, the global route), six lanes of the chi faces' 110^2,
-    # 220^2 and 512^2, all-Neumann, in turns; and the defect's tile beside
-    # one thread a point at 220^3 (zero-rhs + update, the path's form)
+    # 220^2 and 512^2, all-Neumann, in turns
     glob = v2d.V2dPlan("global", 1, 0, 0, 0, (1, 6))
     for n in (110, 220, 512):
         x = build_test_mesh(2 * n if n == 110 else n)[0]
@@ -1006,20 +892,6 @@ def phase_kernels(stats: Stats):
         log(f"[v2d C] 6x{n}^2 all_neumann ns={MS} smoothing, device busy: " + "; ".join(cells))
         del u, rhs, want
 
-    shape, dq, bcs = h.shapes[0], h.dq[0], BC_SETS["Ax"]
-    zz, yy, xx = np.meshgrid(*h.meshes[0], indexing="ij")
-    u64 = torch.as_tensor(np.sin(2.1 * zz + 0.3) * np.cos(1.7 * yy) * np.sin(2.9 * xx + 1.1),
-                          dtype=torch.float64, device=dev)
-    del zz, yy, xx
-    e32 = 1e-4 * f32(shape)
-    compare_kernel_designs(
-        "df_residual_3d", "220^3 Ax zero-rhs+update (the kernels alone, not the wrapper's max)",
-        int(np.prod(shape)), lambda: df.df_residual_3d_plain(u64, None, e32, dq, bcs),
-        lambda: df._defect_cuda(u64, None, e32, dq, bcs, previous=True),
-        lambda: df._defect_cuda(u64, None, e32, dq, bcs), "defect_tile",
-        first_name="defect_point", ns=1)
-    del u64, e32
-
     phase_mean_kernels(stats, f32)
 
     log("[kernels] max difference from the plain version, in ulps of max|plain|: "
@@ -1045,10 +917,7 @@ def phase_mean_kernels(stats: Stats, f32):
     hierarchies (path 2), at 220^3 and at MEAN_ODD, ns 1, 2 and 5, on the
     plan's route and, where that is the block route, on the grid route
     too; timed at 220^3, 128^3, 256^3 (the kernel row) and 16^3, with each
-    call's host enqueue and device events (more than one a call fails);
-    against the previous design (4 ns + 1
-    launches a call) in turns at 256^3, 128^3, 32^3 and 16^3
-    ("[design]")."""
+    call's host enqueue and device events (more than one a call fails)."""
     import numpy as np
 
     from ndsm_tpu_torch.grids import GridHierarchy
@@ -1095,13 +964,6 @@ def phase_mean_kernels(stats: Stats, f32):
                           n**3, MS, f"{n}^3 ns={MS}", n == 256, busy=True)
         if nev > 1:
             raise AssertionError(f"zc_smooth_mean_3d {n}^3: {nev} device events a call, not 1")
-    for n in (256, 128, 32, 16):
-        u, rhs, dq = data[(n, n, n)]
-        compare_kernel_designs(
-            "zc_smooth_mean_3d", f"{n}^3 ns={MS} ({zc.mean_plan(u.shape).route} route)", n**3,
-            lambda: zc.zc_smooth_mean_3d_plain(u, rhs, dq, ALL_N_3D, MS),
-            lambda: zc._mean_sweeps_cuda(u, rhs, dq, ALL_N_3D, MS, previous=True),
-            lambda: zc.zc_smooth_mean_3d(u, rhs, dq, ALL_N_3D, MS), "mean_")
     del data
 
 
@@ -1177,9 +1039,6 @@ def phase_compact_kernels(stats: Stats):
                 log(f"[time] dense-interface call {lab}: split u, split rhs, "
                     f"{len(compact.compact_plan(shape, MS))} passes, merge {cms:.4f} ms; "
                     f"zc_smooth_3d {zms:.4f} ms")
-                if shape[0] == 220 and tag == "Ax":
-                    compare_compact(stats, "compact_smooth_3d", lab, (R[None], B[None]),
-                                    (rR[None], rB[None]), dq, (bcs,), nx)
         log(f"[kernels] {sname}: compact_smooth_3d halves bitwise equal to the plain version "
             f"(ghosts included) and, merged, to zc_smooth_3d / _residual / _cor; split and "
             f"merge bitwise and an exact round trip (three BC sets, ns in {SWEEPS})")
@@ -1237,47 +1096,19 @@ def phase_compact_kernels(stats: Stats):
         log(f"[time] dense-interface lane call {lab}: split u, split rhs, "
             f"{len(compact.compact_plan(shape, MS, 3))} passes, merge {cms:.4f} ms (Az frozen "
             f"{zms:.4f} ms); fused_smooth_3d_batched {fms:.4f} ms")
-        if head:
-            compare_compact(stats, "compact_smooth_3d_batched", lab, (R, B), (rR, rB), dq, lanes,
-                            nx)
         del u, rhs, cor, R, B, rR, rB
-
-
-def compare_compact(stats, key, label, halves_, rhs_, dq, bcs_list, nx):
-    """At ns = MS on a (B, nz, ny, hx) stack of halves: the pass against
-    the previous design (2*MS half-sweep launches, held bitwise to it) in
-    turns ("[design]")."""
-    from ndsm_tpu_torch.ops import compact
-
-    R, B = halves_
-    rR, rB = rhs_
-    nb = int(R.shape[0])
-    pts = nb * int(R.shape[1] * R.shape[2]) * nx
-    act = (True,) * nb
-    new = lambda: compact._sweeps_cuda(R, B, rR, rB, dq, bcs_list, MS, nx, act, key)  # noqa: E731
-    prev = lambda: compact._sweeps_cuda(R, B, rR, rB, dq, bcs_list, MS, nx, act, key,  # noqa: E731
-                                        previous=True)
-    plain = lambda: compact.compact_smooth_3d_batched_plain(  # noqa: E731
-        R, B, rR, rB, dq, bcs_list, MS, nx)
-    for part, g, w in zip("RB", prev(), new()):
-        compare(f"{key}({part}) {label}: previous design vs the pass", g, w)
-    plan = compact.compact_plan((int(R.shape[1]), int(R.shape[2]), nx), MS, nb)
-    compare_kernel_designs(key, f"{label} ({2 * MS} half-sweeps against {len(plan)} passes, "
-                           f"widths {[p.width for p in plan]})", pts, plain, prev, new,
-                           "lane_pass", first_name="compact_half")
 
 
 def phase_pass_widths():
     """The measurements behind ``zc.pass_plan``'s rule: at every level of
     the 220^3 hierarchy, three component lanes, ns = MS, smoothing form,
-    the device busy time of the previous design's half-sweeps, of the plan
-    as fixed, and of marching passes of width 1, 2 and 3 (and the resident
-    pass where a lane fits whole); every result bitwise against the
-    half-sweeps'."""
+    the device busy time of the plan as fixed and of marching passes of
+    width 1, 2 and 3 (and the resident pass where a lane fits whole); every
+    result bitwise against the plain lane form."""
     import numpy as np
     import torch
 
-    from ndsm_tpu_torch.ops import zc
+    from ndsm_tpu_torch.ops import fused, zc
 
     h = hierarchy_of(220)
     lanes = tuple(BC_SETS.values())
@@ -1287,8 +1118,7 @@ def phase_pass_widths():
         dq = h.dq[level]
         u, rhs = (torch.as_tensor(rng.standard_normal((3,) + shape), dtype=torch.float32,
                                   device="cuda") for _ in range(2))
-        prev = lambda: previous_sweeps(u, None, rhs, dq, lanes, MS)  # noqa: E731
-        want = prev()
+        want = fused.fused_smooth_3d_batched_plain(u, rhs, dq, lanes, MS)
         plans = {"plan": zc.pass_plan(shape, MS, 3)}
         for w in (1, 2, 3):  # marching, whatever the lane's size
             widths = [w] * (MS // w) + ([MS % w] if MS % w else [])
@@ -1306,11 +1136,11 @@ def phase_pass_widths():
                 continue
             run = lambda plan=plan: zc.run_passes(u, None, rhs, dq, lanes, act, tag, plan)[0]  # noqa: E731
             compare(f"pass {tag} {shape}", run(), want)
-            (pb, _), (kb, _) = device_ms_split(prev, run, "lane_pass")
+            kb, kev = device_ms(run)
             kind = "resident" if plan[0].resident else "marching"
-            cells.append(f"{tag} ({kind}, {len(plan)} launches) {kb:.4f} ms")
-        log(f"[width] {'x'.join(map(str, shape))} x3 ns={MS} smoothing, device busy: previous "
-            f"design ({2 * MS} launches) {pb:.4f} ms; " + "; ".join(cells))
+            cells.append(f"{tag} ({kind}, {len(plan)} launches) {kb:.4f} ms in {kev:.1f} events")
+        log(f"[width] {'x'.join(map(str, shape))} x3 ns={MS} smoothing, device busy: "
+            + "; ".join(cells))
         del u, rhs, want
 
 
@@ -1359,27 +1189,22 @@ def check_v2d_routes(what, launches, routes, info):
 
 
 def log_passes(what, launches, passes, keys):
-    """The 3D red-black kernel launches of a warm call: the wrapper calls,
-    the pass launches behind them, and what the previous design launched
-    for the same calls at ns = MS (2*MS half-sweeps a call, +1 for a
-    residual)."""
+    """The 3D red-black kernel launches of a warm call: the wrapper calls
+    and the pass launches behind them."""
     calls = sum(launches[k] for k in keys)
-    prev = sum(launches[k] * (2 * MS + ("residual" in k)) for k in keys)
     log(f"[{what}] 3D red-black smoothing: {calls} wrapper calls, {passes} pass launches "
-        f"({passes / max(calls, 1):.2f} a call); the previous design: {prev} launches")
+        f"({passes / max(calls, 1):.2f} a call)")
     if calls and not passes:
         raise AssertionError(f"{what}: the pass kernel never launched")
 
 
 def log_compact_passes(what, launches, passes, dense_passes, key):
     """The colour-split smoother's launches of a warm call: the wrapper
-    calls, the pass launches behind them (its own counter), what the
-    previous design launched for the same calls (2*MS half-sweeps a call);
-    the compact passes must be there, the dense pass's must not."""
+    calls and the pass launches behind them (its own counter); the compact
+    passes must be there, the dense pass's must not."""
     calls = launches[key]
     log(f"[{what}] colour-split smoothing: {calls} {key} calls, {passes} compact pass "
-        f"launches ({passes / max(calls, 1):.2f} a call); the previous design: "
-        f"{2 * MS * calls} half-sweeps; dense pass launches {dense_passes}")
+        f"launches ({passes / max(calls, 1):.2f} a call); dense pass launches {dense_passes}")
     if not passes or dense_passes:
         raise AssertionError(f"{what}: {passes} compact pass launches, {dense_passes} dense "
                              "pass launches")
@@ -1872,7 +1697,7 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
     (2-sweep passes over a 4-point halo; the 1-sweep residual pass over 3;
     the zero-rhs defect with and without the update).  Work is counted
     from the extended block: its halo points are read and swept too."""
-    from ndsm_tpu_torch.ops import df_sharded, zc, zc_sharded
+    from ndsm_tpu_torch.ops import df_sharded, zc_sharded
 
     real = ub[0].numel()
     lab = f"{cut.where}, shard 0"
@@ -1890,25 +1715,8 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
                           f"{lab} (+{H} halo) ns={ns}", True, work=work)
         if nev > 1:
             raise AssertionError(f"{key}: {nev} device events a call, not 1")
-        # the one-launch pass against the previous design (2 ns half-sweep
-        # launches over the whole block, + 1 residual launch), in turns
-        pos = cut.where_args(0, H=H)
-        offsets, extents, halos = pos if cut.zy else ((pos[0],), (pos[1],), (pos[2],))
-        prev = lambda: zc_sharded._smooth_cuda(ue, re, dq, bcs, ns, offsets, extents, halos,
-                                               res, key, previous=True)  # noqa: E731
-        for part, g, w in zip("ur", (prev() if res else (prev(),)),
-                              (fn(ue, re, *args) if res else (fn(ue, re, *args),))):
-            compare(f"{key}({part}) previous design vs the pass", g, w)
-        p = zc.shard_pass_plan(ue.shape, (halos + (0,))[:2], ns, res)
-        compare_kernel_designs(
-            key, f"{lab} (+{H} halo) ns={ns} (pass tile {p.tile}, window {p.window}, grid "
-            f"{p.grid})", real, lambda: plain(ue, re, *args), prev, lambda: fn(ue, re, *args),
-            "lane_pass", first_name="shard_", ns=ns, work=work)
     ext = ue64[0].numel()
     pos = cut.where_args(0)
-    offsets, extents = (pos if cut.zy else ((pos[0],), (pos[1],)))
-    real_shape = tuple(n - 2 for n in ue64[0].shape[:len(offsets)]) + tuple(
-        ue64[0].shape[len(offsets):])
     for base, e, work in (
             ("df_residual_sharded_3d", None, (8 * ext + 4 * real, 14 * real, PEAK_F64)),
             ("df_update_residual_sharded_3d", ee[0],
@@ -1918,14 +1726,6 @@ def _time_sharded(stats, cut, ub, rb, ue64, ee, dq, bcs):
         args = (ue64[0], None) + (() if e is None else (e,)) + (dq, bcs) + pos
         stats.timed(key, lambda: fn(*args), lambda: plain(*args), real, 1,
                     f"{lab} (+1 halo) zero-rhs", True, work=work)
-        # the tile against the previous design (one thread a point), in turns
-        prev = lambda: df_sharded._defect_cuda(ue64[0], None, e, dq, bcs, offsets,  # noqa: E731
-                                               extents, real_shape, key, previous=True)
-        for part, g, w in zip(("r32", "max", "u"), prev(), fn(*args)):
-            compare(f"{key} ({part}) previous design vs the tile", g, w)
-        compare_kernel_designs(key, f"{lab} (+1 halo) zero-rhs", real, lambda: plain(*args),
-                               prev, lambda: fn(*args), "defect_tile_f64",
-                               first_name="defect_sharded_f64", ns=1, work=work)
 
 
 DIFFUSION = ("diffusion_sweep", "diffusion_residual")

@@ -39,80 +39,15 @@
 // loads, the SMs' memory instructions); by bytes, 12 a point and pass
 // times the window overhead, as the dense pass.
 //
-// compact_half, the previous design (one launch a half-sweep, one thread an
-// entry reading its six neighbours through L1 and L2), stays as the
-// yardstick chip_smoke.py times beside the pass.  The split and the merge
-// are pure streaming passes (8 bytes a point each).
+// The split and the merge are pure streaming passes (8 bytes a point each).
 //
 // Lane freezing: a frozen lane costs no sweep work.  The pass's blocks of
-// a frozen lane copy its halves (ghosts included); the in-place
-// half-sweeps launch over the active lanes only, the out-of-place ones
-// copy a frozen lane's half unchanged.
+// a frozen lane copy its halves (ghosts included).
 
 #include "lane_pass.cuh"
 #include "stencil.cuh"
 
 namespace ndsm {
-
-// The two colour halves of a stack, each (B, nz, ny, hx).
-struct Halves {
-  const float* r;
-  const float* b;
-};
-
-// One half-sweep over the grid's lanes: grid lane g updates the half
-// c = (L.color >> g) & 1 of its stack lane, one thread per entry (z, y, k).
-// The own half is read from `src` and written to `dst` (which may be the
-// same arrays: in place; else every entry of the half is written, updated
-// or copied); the opposite half is read from `opp`.  The index arithmetic
-// within a lane is done in I, as in fused_smooth.cu.
-template <typename I>
-__global__ void compact_half(Halves src, Halves opp, Halves rhs, float* dst_r,
-                             float* dst_b, int nz, int ny, int nx, Lanes L,
-                             float wz, float wy, float wx, float w0) {
-  const I hx = (I)((nx + 1) >> 1);
-  const I idx = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (I)nz * (I)ny * hx) return;
-  const int g = blockIdx.y;
-  const int c = (L.color >> g) & 1;
-  const long long base =
-      (long long)((L.lane >> (4 * g)) & 15u) * nz * ny * (long long)hx;
-  const float* own = (c ? src.b : src.r) + base;
-  float* out = (c ? dst_b : dst_r) + base;
-  const bool copy = own != out;
-  if (!((L.active >> g) & 1u)) {
-    if (copy) out[idx] = own[idx];
-    return;
-  }
-  const int k = (int)(idx % hx);
-  const I row = idx / hx;
-  const int y = (int)(row % (I)ny);
-  const int z = (int)(row / (I)ny);
-  const int par = ((z + y) & 1) ^ c;
-  const int x = 2 * k + par;
-  if (x >= nx) return;  // a ghost: written by the thread of the entry before it
-  float v;
-  const bool frozen = on_dirichlet_face(z, y, x, nz, ny, nx, lane_dmask(L, g));
-  if (frozen) {
-    v = own[idx];
-  } else {
-    const float* o = (c ? opp.r : opp.b) + base;
-    const float* f = (c ? rhs.b : rhs.r) + base;
-    const I zl = ((I)reflect_lo(z) * (I)ny + (I)y) * hx + (I)k;
-    const I zh = ((I)reflect_hi(z, nz) * (I)ny + (I)y) * hx + (I)k;
-    const I yl = ((I)z * (I)ny + (I)reflect_lo(y)) * hx + (I)k;
-    const I yh = ((I)z * (I)ny + (I)reflect_hi(y, ny)) * hx + (I)k;
-    // own x = 2k reads o[k-1], o[k]; own x = 2k+1 reads o[k], o[k+1]; clamped
-    const I xl = par ? idx : (k > 0 ? idx - 1 : idx);
-    const I xh = par ? ((I)k < hx - 1 ? idx + 1 : idx) : idx;
-    float t = (o[zl] + o[zh]) * wz;
-    t = t + (o[yl] + o[yh]) * wy;
-    t = t + (o[xl] + o[xh]) * wx;
-    v = (t - f[idx]) * w0;
-  }
-  if (copy || !frozen) out[idx] = v;
-  if ((nx & 1) && par && (I)k == hx - 2) out[idx + 1] = v;  // the row's ghost
-}
 
 // Dense stack u (+ cor on the lanes `active` marks) -> its halves, ghosts
 // set; one thread per pair (x = 2k, 2k + 1).
@@ -166,33 +101,6 @@ __global__ void compact_merge(const float* __restrict__ r,
 // ---- plain C interface (loaded with ctypes); each returns cudaGetLastError().
 // color, dmask and active are host arrays of nb (1..8) ints.
 
-// Half-sweep number `second` (0 or 1) of a sweep: lane b updates the half
-// color[b] ^ second, read from (src_r, src_b) and written to (dst_r,
-// dst_b), reading the other half from (opp_r, opp_b).  With dst == src the
-// launch covers the active lanes only; else every lane, a frozen one copied.
-extern "C" int ndsm_compact_half_f32(const void* src_r, const void* src_b,
-                                     const void* opp_r, const void* opp_b,
-                                     const void* rhs_r, const void* rhs_b,
-                                     void* dst_r, void* dst_b, int nb, int nz,
-                                     int ny, int nx, const int* color,
-                                     const int* dmask, const int* active,
-                                     int second, float wz, float wy, float wx,
-                                     float w0, void* stream) {
-  if (nb < 1 || nb > ndsm::kMaxLanes || nx < 4) return (int)cudaErrorInvalidValue;
-  const bool inplace = src_r == dst_r && src_b == dst_b;
-  const ndsm::Lanes L = ndsm::make_lanes(nb, color, dmask, active, second, inplace);
-  if (L.n == 0) return 0;
-  const dim3 grid = ndsm::lane_grid((long long)nz * ny * ((nx + 1) / 2), L.n);
-  auto kern = ndsm::small_lane(nz, ny, nx) ? ndsm::compact_half<unsigned>
-                                           : ndsm::compact_half<unsigned long long>;
-  kern<<<grid, ndsm::kThreads, 0, (cudaStream_t)stream>>>(
-      ndsm::Halves{(const float*)src_r, (const float*)src_b},
-      ndsm::Halves{(const float*)opp_r, (const float*)opp_b},
-      ndsm::Halves{(const float*)rhs_r, (const float*)rhs_b}, (float*)dst_r,
-      (float*)dst_b, nz, ny, nx, L, wz, wy, wx, w0);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int ndsm_compact_split_f32(const void* u, const void* cor, void* r,
                                       void* b, int nb, int nz, int ny, int nx,
                                       const int* active, void* stream) {
@@ -231,7 +139,7 @@ extern "C" int ndsm_compact_pass_f32(const void* src_r, const void* src_b, const
   if (nb < 1 || nb > ndsm::kMaxLanes || nx < 4 || w < 1 || cz < 1 || ty < 1 || tx < 1 ||
       ((tx & 1) && tx < nx))
     return (int)cudaErrorInvalidValue;
-  const ndsm::Lanes L = ndsm::make_lanes(nb, color, dmask, active, 0, false);
+  const ndsm::Lanes L = ndsm::make_lanes(nb, color, dmask, active);
   ndsm::PassTile T = ndsm::pass_tile(ny, nx, w, false, cz, ty, tx);
   if (cz >= nz && ty >= ny && tx >= nx) {  // one tile holds the lane: resident if it fits
     ndsm::PassTile R = T;

@@ -33,10 +33,6 @@
 // chunk's two end planes.  f64 arithmetic (~20 operations a point) is far
 // below the H100's f64 rate.
 //
-// defect_point_f64 is the previous design, one thread a point that
-// reads its six neighbours as u[q] + e[q] through L1; it stays as the
-// yardstick chip_smoke.py times beside the tile.
-//
 // The same defect on one shard of a level partitioned in z, or in z and y
 // (replaces ndsm_tpu/ops/pallas_df.py: df_residual_sharded_3d with parts
 // (0,) and (0, 1), its zero_rhs and update variants).  u (and e) are the
@@ -62,9 +58,7 @@
 // their owners: a halo plane by the first (last) z chunk of each tile
 // column, a halo row by the y-halo threads of the edge tiles at every
 // plane of their chunk, a corner by those threads of the first (last)
-// chunk.  defect_sharded_f64, one thread a point of the extended block,
-// is the previous design, kept as the yardstick chip_smoke.py times
-// beside it.
+// chunk.
 
 #include "stencil.cuh"
 
@@ -86,38 +80,6 @@ __device__ __forceinline__ void write_block_max(float a, float* block_max) {
     for (int w = 1; w < kThreads / 32; ++w) m = nan_max(m, warp_max[w]);
     block_max[blockIdx.x] = m;
   }
-}
-
-__global__ void defect_point_f64(const double* __restrict__ u,
-                           const float* __restrict__ e,
-                           double* __restrict__ u_out,
-                           const double* __restrict__ rhs,
-                           float* __restrict__ r32,
-                           float* __restrict__ block_max, int nz, int ny,
-                           int nx, int dmask, double wz, double wy, double wx) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float a = 0.0f;
-  if (p < (long long)nz * ny * nx) {
-    const int x = (int)(p % nx);
-    const long long row = p / nx;
-    const int y = (int)(row % ny);
-    const int z = (int)(row / ny);
-    auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
-    const double c = v(p);
-    if (u_out) u_out[p] = c;
-    float rv = 0.0f;
-    if (!on_dirichlet_face(z, y, x, nz, ny, nx, dmask)) {
-      const Neighbours n = neighbours(z, y, x, nz, ny, nx);
-      const double c2 = 2.0 * c;
-      double t = ((v(n.zl) - c2) + v(n.zh)) * wz;
-      t = t + ((v(n.yl) - c2) + v(n.yh)) * wy;
-      t = t + ((v(n.xl) - c2) + v(n.xh)) * wx;
-      rv = (float)((rhs ? rhs[p] : 0.0) - t);
-    }
-    r32[p] = rv;
-    a = fabsf(rv);
-  }
-  write_block_max(a, block_max);
 }
 
 // ---- the z-marching tile
@@ -296,48 +258,6 @@ defect_tile_f64(const double* __restrict__ u, const float* __restrict__ e,
   write_block_max(a, block_max);
 }
 
-__global__ void defect_sharded_f64(const double* __restrict__ u,
-                                   const float* __restrict__ e,
-                                   double* __restrict__ u_out,
-                                   const double* __restrict__ rhs,
-                                   float* __restrict__ r32,
-                                   float* __restrict__ block_max, int nz,
-                                   int ny, int nx, int hy, int z0, int y0,
-                                   int NZ, int NY, int dmask, double wz,
-                                   double wy, double wx) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int nye = ny + 2 * hy;
-  float a = 0.0f;
-  if (p < (long long)(nz + 2) * nye * nx) {
-    const int x = (int)(p % nx);
-    const long long row = p / nx;
-    const int ky = (int)(row % nye);
-    const int kz = (int)(row / nye);
-    auto v = [&](long long q) { return e ? u[q] + (double)e[q] : u[q]; };
-    const double c = v(p);
-    if (u_out) u_out[p] = c;
-    if (kz >= 1 && kz <= nz && ky >= hy && ky < ny + hy) {
-      const long long rp = ((long long)(kz - 1) * ny + (ky - hy)) * nx + x;
-      float rv = 0.0f;
-      if (!on_dirichlet_face(z0 + kz - 1, y0 + ky - hy, x, NZ, NY, nx, dmask)) {
-        const Neighbours n = neighbours(kz, ky, x, nz + 2, nye, nx);
-        const double c2 = 2.0 * c;
-        double t = ((v(n.zl) - c2) + v(n.zh)) * wz;
-        t = t + ((v(n.yl) - c2) + v(n.yh)) * wy;
-        t = t + ((v(n.xl) - c2) + v(n.xh)) * wx;
-        rv = (float)((rhs ? rhs[rp] : 0.0) - t);
-      }
-      r32[rp] = rv;
-      a = fabsf(rv);
-    }
-  }
-  write_block_max(a, block_max);
-}
-
-}  // namespace ndsm
-
-namespace ndsm {
-
 // The tile kernel's grid: z chunks so that tiles * chunks blocks are all
 // resident at once (the card's SMs times the blocks an SM holds), each at
 // least one plane; (nz, ny, nx) the real block with S.
@@ -366,11 +286,6 @@ inline TileGrid tile_grid(int nz, int ny, int nx) {
 
 }  // namespace ndsm
 
-// Block maxima of the one-thread-a-point kernels (one per kThreads points).
-extern "C" int ndsm_defect_blocks(int nz, int ny, int nx) {
-  return (int)ndsm::blocks_for((long long)nz * ny * nx);
-}
-
 // Block maxima the tile kernel writes.
 extern "C" int ndsm_defect_tile_blocks(int nz, int ny, int nx) {
   return ndsm::tile_grid<false>(nz, ny, nx).blocks;
@@ -394,19 +309,6 @@ extern "C" int ndsm_defect_f64(const void* u, const void* e, void* u_out,
   return (int)cudaGetLastError();
 }
 
-// The previous design, one thread a point (ndsm_defect_blocks maxima).
-extern "C" int ndsm_defect_point_f64(const void* u, const void* e, void* u_out,
-                                     const void* rhs, void* r32, void* block_max,
-                                     int nz, int ny, int nx, int dmask, double wz,
-                                     double wy, double wx, void* stream) {
-  const long long n = (long long)nz * ny * nx;
-  ndsm::defect_point_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
-      (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx);
-  return (int)cudaGetLastError();
-}
-
 // The defect of a shard's real block (nz, ny, nx) from its extended block
 // (nz + 2, ny + 2hy, nx): one launch of the shard form of the tile,
 // ndsm_defect_sharded_tile_blocks maxima.  (z0, y0) is the level's index
@@ -422,21 +324,5 @@ extern "C" int ndsm_defect_sharded_tile_f64(const void* u, const void* e, void* 
       (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
       (float*)r32, (float*)block_max, nz, ny, nx, dmask, wz, wy, wx, g.tiles_x,
       g.tiles_y, g.cz, ndsm::ShardDefect{hy, z0, y0, NZ, NY});
-  return (int)cudaGetLastError();
-}
-
-// The previous design, one thread a point of the extended block
-// (ndsm_defect_blocks(nz + 2, ny + 2hy, nx) maxima).
-extern "C" int ndsm_defect_sharded_f64(const void* u, const void* e, void* u_out,
-                                       const void* rhs, void* r32, void* block_max,
-                                       int nz, int ny, int nx, int hy, int z0, int y0,
-                                       int NZ, int NY, int dmask, double wz, double wy,
-                                       double wx, void* stream) {
-  const long long n = (long long)(nz + 2) * (ny + 2 * hy) * nx;
-  ndsm::defect_sharded_f64<<<ndsm::blocks_for(n), ndsm::kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const double*)u, (const float*)e, (double*)u_out, (const double*)rhs,
-      (float*)r32, (float*)block_max, nz, ny, nx, hy, z0, y0, NZ, NY, dmask, wz, wy,
-      wx);
   return (int)cudaGetLastError();
 }

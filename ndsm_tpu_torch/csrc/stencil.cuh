@@ -60,14 +60,13 @@ inline unsigned blocks_for(long long n) {
 
 constexpr int kMaxLanes = 8;
 
-// The lanes one launch covers, packed into scalars and passed by value
-// (a per-lane array indexed at run time would go through local memory).
-// Grid lane k = blockIdx.y is stack lane (lane >> 4k) & 15, sweeps colour
-// (color >> k) & 1 with Dirichlet faces (dmask >> 6k) & 63 (the 6-bit mask
-// above), and is frozen when (active >> k) & 1 is 0.
+// The lanes of a launch, packed into scalars and passed by value (a
+// per-lane array indexed at run time would go through local memory).
+// Lane k = blockIdx.z (blockIdx.y of the one-thread-a-point kernels)
+// sweeps colour (color >> k) & 1 with Dirichlet faces (dmask >> 6k) & 63
+// (the 6-bit mask above), and is frozen when (active >> k) & 1 is 0.
 struct Lanes {
-  int n;
-  unsigned lane, color, active;
+  unsigned color, active;
   unsigned long long dmask;
 };
 
@@ -75,18 +74,14 @@ __device__ __forceinline__ int lane_dmask(const Lanes& L, int k) {
   return (int)((L.dmask >> (6 * k)) & 63ull);
 }
 
-// Lanes of a launch from the host arrays: every stack lane, or (only_active)
-// the active ones; colour = first colour XOR `second`.
+// The lanes of a launch from the host arrays of nb lanes.
 inline Lanes make_lanes(int nb, const int* color, const int* dmask,
-                        const int* active, int second, bool only_active) {
+                        const int* active) {
   Lanes L{};
   for (int b = 0; b < nb; ++b) {
-    if (only_active && !active[b]) continue;
-    const int k = L.n++;
-    L.lane |= (unsigned)b << (4 * k);
-    L.color |= (unsigned)((color ? color[b] : 0) ^ second) << k;
-    L.active |= (unsigned)(active[b] != 0) << k;
-    L.dmask |= (unsigned long long)(dmask[b] & 63) << (6 * k);
+    L.color |= (unsigned)(color ? color[b] : 0) << b;
+    L.active |= (unsigned)(active[b] != 0) << b;
+    L.dmask |= (unsigned long long)(dmask[b] & 63) << (6 * b);
   }
   return L;
 }

@@ -255,7 +255,7 @@ __device__ __forceinline__ SweepMap sweep_map(int hx) {
 // point's x neighbours at fixed offsets); the domain's y faces, rows 0
 // and ny - 1, are peeled (reflection, Dirichlet rows).  u rows are indexed
 // from lo, rhs rows from r0.
-__device__ __forceinline__ void lane_half(float* U, const float* F, int S, int hx,
+__device__ __forceinline__ void band_half(float* U, const float* F, int S, int hx,
                                           int ny, int nx, const Band& b, int color,
                                           int dmask, float wy, float wx, float w0) {
   const SweepMap m = sweep_map(hx);
@@ -453,13 +453,13 @@ v2d_lane(const float* __restrict__ u_in, const float* __restrict__ cor,
   __syncthreads();
 
   for (int s = 0; s < nsweeps; ++s) {
-    lane_half(U, F, S, hx, ny, nx, b, red, dmask, wy, wx, w0);
+    band_half(U, F, S, hx, ny, nx, b, red, dmask, wy, wx, w0);
     if (C > 1) {
       cl.sync();
       copy_halos(cl, U, S, hx, ny, b, k, C, red);
     }
     __syncthreads();
-    lane_half(U, F, S, hx, ny, nx, b, 1 - red, dmask, wy, wx, w0);
+    band_half(U, F, S, hx, ny, nx, b, 1 - red, dmask, wy, wx, w0);
     if (!all_neumann) {
       if (C > 1) {
         cl.sync();

@@ -15,7 +15,8 @@
 // over mean_blocks(N) virtual blocks of kSumThreads virtual threads
 // (virtual thread t adds flat indices t, t + G, t + 2G, ... in turn, G the
 // virtual threads; each virtual block folds its threads' sums in a tree),
-// then sum_final's fold of those partials and a true division.
+// then one virtual block's sum of those partials (fold_mean below) and a
+// true division.
 //
 // The design.  Per sweep k, over one output array `out`:
 //   R    the red half-sweep in place: red points updated from their black
@@ -30,12 +31,12 @@
 //        sum is legal and coalesced), and each virtual block folds its
 //        1024 sums into partials[vb];
 //   --   grid barrier;
-//   fold every block folds the partials itself, in sum_final's order, so
+//   fold every block folds the partials itself, in fold_mean's order, so
 //        every block holds the same m_k, and goes on to the next R.
 // After the last sweep each block subtracts m from its own points.  So a
 // call is one launch and 2 * ns grid barriers, and per point and sweep
 // about 24 bytes move in whole cache lines (each phase reads u and rhs and
-// writes u) against ~28 in four launches for the previous design.
+// writes u).
 // A resident block stands for the virtual blocks b, b + grid, ... in turn,
 // in every phase (the same map, so the final subtraction touches only
 // points the block itself wrote).  The resident threads move through the
@@ -53,9 +54,6 @@
 // What bounds it on the H100: device memory (the level does not fit L2
 // beyond ~150^3: u and rhs are 8 bytes a point), ~0.7 ms for five sweeps
 // at 256^3, and on small levels the 2 * ns barriers.
-// The first design (per sweep a half-sweep pair of fused_smooth.cu,
-// sum_partials and sum_final, and sub_scalar at the end, 4 * ns + 1
-// launches) stays below as the yardstick chip_smoke.py times beside it.
 
 #include "reduce.cuh"
 #include "stencil.cuh"
@@ -91,8 +89,10 @@ __device__ __forceinline__ void grid_barrier(unsigned* bar) {
   __syncthreads();
 }
 
-// m = f32(sum / nf) of `parts` partials (<= kSumThreads) in sum_final's
-// order: thread t's strided sum is 0 + parts[t], then the tree.  Warp 0
+// m = f32(sum / nf) of `parts` partials (<= kSumThreads) in
+// strided_block_sum's order over one block: thread t's strided sum is
+// 0 + parts[t], then the tree (reduce.cuh), then a true (correctly
+// rounded) division as in the JAX engine's sum / f32(N).  Warp 0
 // folds; `l2` reads the partials through L2 (written in this launch by
 // other blocks).  Returns m to every thread (through *msh).
 __device__ __forceinline__ float fold_mean(const float* parts, int nparts, float nf,
@@ -288,35 +288,6 @@ mean_block(const float* __restrict__ u, const float* __restrict__ rhs, float* __
   for (int p = threadIdx.x; p < n; p += kSumThreads) out[p] = U[p] - m;
 }
 
-// ---- the first design: the mean's reduction passes between half-sweeps
-
-// First pass of the mean: partials[b] = block b's strided sum of x, over a
-// grid of gridDim.x * kSumThreads threads (reduce.cuh).
-__global__ void __launch_bounds__(kSumThreads)
-sum_partials(const float* __restrict__ x, long long n, float* __restrict__ partials) {
-  __shared__ float sh[kSumThreads];
-  const long long g = (long long)blockIdx.x * kSumThreads + threadIdx.x;
-  const float s = block_tree_sum(
-      strided_sum(x, n, g, (long long)gridDim.x * kSumThreads), sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = s;
-}
-
-// Second pass, one block: out[0] = f32(sum(partials) / divisor), a true
-// (correctly rounded) division as in the JAX engine's sum / f32(N).
-__global__ void __launch_bounds__(kSumThreads)
-sum_final(const float* __restrict__ partials, int nparts, float divisor,
-          float* __restrict__ out) {
-  __shared__ float sh[kSumThreads];
-  const float s = block_tree_sum(strided_sum(partials, nparts, threadIdx.x, kSumThreads), sh);
-  if (threadIdx.x == 0) out[0] = __fdiv_rn(s, divisor);
-}
-
-// x -= *m in place.
-__global__ void sub_scalar(float* x, const float* __restrict__ m, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < n) x[p] = x[p] - *m;
-}
-
 constexpr int kDevices = 64;
 
 // The resident blocks of mean_grid<I> on the current device (its
@@ -405,24 +376,4 @@ extern "C" int ndsm_mean_smooth_f32(const void* u, const void* rhs, void* out, v
                            : (const void*)ndsm::mean_grid<unsigned long long>;
   return (int)cudaLaunchCooperativeKernel(kern, dim3((unsigned)grid), dim3(ndsm::kSumThreads),
                                           args, 0, (cudaStream_t)stream);
-}
-
-extern "C" int ndsm_sum_partials_f32(const void* x, long long n, void* partials,
-                                     int nblocks, void* stream) {
-  ndsm::sum_partials<<<nblocks, ndsm::kSumThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, n, (float*)partials);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ndsm_sum_final_f32(const void* partials, int nparts, float divisor,
-                                  void* out, void* stream) {
-  ndsm::sum_final<<<1, ndsm::kSumThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)partials, nparts, divisor, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ndsm_sub_scalar_f32(void* x, const void* m, long long n, void* stream) {
-  ndsm::sub_scalar<<<ndsm::blocks_for(n), ndsm::kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)x, (const float*)m, n);
-  return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ Dirichlet elsewhere), so the state is a stack ``(B, *grid)`` and every
 mask (checkerboard parity with the lane's first colour, Dirichlet
 freezing, residual zeroing) is per lane:
 
-  * float32 3D levels smooth through ops/fused.py's lane kernels (one
-    launch per half-sweep for all lanes; on the CPU their plain versions),
+  * float32 3D levels smooth through ops/fused.py's lane kernels (the
+    multi-sweep pass, each launch a few sweeps of all lanes; on the CPU
+    their plain versions),
     or, with ``Options(smoother="compact")`` on every such level whose last
     extent is >= 4, through the colour-split lane kernels of ops/compact.py
     (split once, the sweeps on the halves, merge once; the residual is the

@@ -41,9 +41,7 @@ ping-ponging between the result and one scratch pair of halves;
 all sweeps on the smallest levels; the shared rows are the dense pass's)
 with an even tile width (a window starts on an even column, where both
 colours of a row start at k = wx0 / 2).  The counter ``zc.PASSES +
-"compact"`` counts the launches (``ops.compact_pass_launches()``); ``_sweeps_cuda(...,
-previous=True)`` runs the previous design, one launch a half-sweep, for
-chip_smoke.py's "[design]" lines.
+"compact"`` counts the launches (``ops.compact_pass_launches()``).
 
 Unlike the TPU kernel there is no tile search, no sweep limit and no gate
 on even extents or 128-wide rows: every shape with nz, ny >= 2 and nx >= 4
@@ -64,8 +62,7 @@ from . import stencils
 from . import stencils_compact as sc
 from . import zc
 from .fused import MAX_LANES, check_lanes, lane_masks, lane_residual
-from .zc import (check_config, check_level, count_launch, count_plain, dirichlet_mask,
-                 residual_cuda)
+from .zc import check_config, check_level, count_launch, count_plain, residual_cuda
 
 __all__ = [
     "compact_smooth_3d",
@@ -173,13 +170,10 @@ def _compact_plan(shape, ns, nb):
 
 
 def _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active, what: str,
-                 plan=None, previous: bool = False):
+                 plan=None):
     """``nsweeps`` sweeps of (B, nz, ny, hx) halves: the passes of ``plan``
     (default :func:`compact_plan`'s), out of place, ping-ponging so that
-    the last writes the returned halves; or (``previous``) the previous
-    design's 2*nsweeps half-sweep launches."""
-    if previous:
-        return _half_sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps, nx, active, what)
+    the last writes the returned halves."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -202,36 +196,6 @@ def _sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active
             profiling.count(zc.PASSES + "compact")
             src = dst
     return out
-
-
-
-def _half_sweeps_cuda(R, B, rhs_R, rhs_B, dq, bcs_list, nsweeps: int, nx: int, active,
-                      what: str):
-    """The previous design: 2*nsweeps half-sweep launches over (B, nz, ny,
-    hx) halves: the first two write new halves (each lane's first colour,
-    then its second), the rest run in place on those over the active lanes
-    only."""
-    from ..utils import cuda_build
-
-    lib = cuda_build.kernels()
-    nb, nz, ny, _ = (int(s) for s in R.shape)
-    (wz, wy, wx), w0 = stencils.stencil_weights(dq, torch.float32)
-    color = _int_array([stencils.first_color_parity(b) for b in bcs_list])
-    dmask = _int_array([dirichlet_mask(b) for b in bcs_list])
-    act = _int_array([1 if a else 0 for a in active])
-    Ro, Bo = torch.empty_like(R), torch.empty_like(B)
-    src, out, rhs = (R.data_ptr(), B.data_ptr()), (Ro.data_ptr(), Bo.data_ptr()), (
-        rhs_R.data_ptr(), rhs_B.data_ptr())
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream(R.device).cuda_stream
-        for k in range(2 * int(nsweeps)):
-            own = src if k < 2 else out
-            opp = src if k == 0 else out
-            rc = lib.ndsm_compact_half_f32(
-                *own, *opp, *rhs, *out, nb, nz, ny, int(nx), color, dmask, act, k % 2,
-                wz, wy, wx, w0, stream)
-            cuda_build.check(rc, what)
-    return Ro, Bo
 
 
 def _split_cuda(u, cor, active):

@@ -73,9 +73,8 @@ def df_residual_3d(u, rhs: Optional[torch.Tensor], e: Optional[torch.Tensor],
     return r32, mx, u_new
 
 
-def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None, previous: bool = False):
-    """One launch of the tile kernel, or (``previous``) of the previous
-    design, one thread a point (chip_smoke.py times the two in turns)."""
+def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None):
+    """One launch of the tile kernel (its maxima sized by the tile grid)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -84,12 +83,11 @@ def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None, previous: bool = False):
     r32 = torch.empty(u.shape, dtype=torch.float32, device=u.device) if r32_out is None \
         else r32_out
     u_new = torch.empty_like(u) if e is not None else u
-    launch, blocks = ((lib.ndsm_defect_point_f64, lib.ndsm_defect_blocks) if previous
-                      else (lib.ndsm_defect_f64, lib.ndsm_defect_tile_blocks))
     with torch.cuda.device(u.device):
-        block_max = torch.empty(blocks(nz, ny, nx), dtype=torch.float32, device=u.device)
+        block_max = torch.empty(lib.ndsm_defect_tile_blocks(nz, ny, nx), dtype=torch.float32,
+                                device=u.device)
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = launch(
+        rc = lib.ndsm_defect_f64(
             u.data_ptr(),
             None if e is None else e.data_ptr(),
             None if e is None else u_new.data_ptr(),

@@ -41,10 +41,7 @@ read as data, the update's halo points written by the edge tiles and the
 end chunks; one maximum a block, reduced here; the z form is the y form
 with no y halo) and add one to their own launch counter, or raise; on a CPU
 tensor they run the plain versions below, built from
-``stencils.masked_residual`` in float64.  ``_defect_cuda(...,
-previous=True)`` launches the previous design, one thread a point of the
-extended block, for chip_smoke.py's "[design]" lines.  Inputs are never
-modified.
+``stencils.masked_residual`` in float64.  Inputs are never modified.
 """
 
 from __future__ import annotations
@@ -147,11 +144,9 @@ def _tile_blocks(nz: int, ny: int, nx: int, device: int) -> int:
         return cuda_build.kernels().ndsm_defect_sharded_tile_blocks(nz, ny, nx)
 
 
-def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what,
-                 previous: bool = False):
+def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what):
     """One launch of the shard form of the tile (its maxima sized by the
-    tile grid of the real block), or (``previous``) of the previous
-    design, one thread a point of the extended block."""
+    tile grid of the real block, on this device)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
@@ -162,15 +157,10 @@ def _defect_cuda(u_ext, rhs, e_ext, dq, bcs, offsets, extents, real, what,
     r32 = torch.empty(real, dtype=torch.float32, device=u_ext.device)
     v = torch.empty_like(u_ext) if e_ext is not None else None
     with torch.cuda.device(u_ext.device):
-        if previous:
-            launch, blocks = lib.ndsm_defect_sharded_f64, lib.ndsm_defect_blocks(
-                nz + 2, ny + 2 * hy, nx)
-        else:  # the tile grid of the real block, on this device
-            launch = lib.ndsm_defect_sharded_tile_f64
-            blocks = _tile_blocks(nz, ny, nx, u_ext.device.index)
-        block_max = torch.empty(blocks, dtype=torch.float32, device=u_ext.device)
+        block_max = torch.empty(_tile_blocks(nz, ny, nx, u_ext.device.index),
+                                dtype=torch.float32, device=u_ext.device)
         stream = torch.cuda.current_stream(u_ext.device).cuda_stream
-        cuda_build.check(launch(
+        cuda_build.check(lib.ndsm_defect_sharded_tile_f64(
             u_ext.data_ptr(), None if e_ext is None else e_ext.data_ptr(),
             None if v is None else v.data_ptr(), None if rhs is None else rhs.data_ptr(),
             r32.data_ptr(), block_max.data_ptr(), nz, ny, nx, hy, int(offsets[0]), y0,

@@ -156,7 +156,11 @@ def _launch(kind: str, u, rhs, a, out, bcs, w, *extra) -> None:
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
-    fn = getattr(lib, f"ndsm_diffusion_{kind}_{'f32' if u.dtype == torch.float32 else 'f64'}")
+    f32 = u.dtype == torch.float32
+    if kind == "sweep":
+        fn = lib.ndsm_diffusion_sweep_f32 if f32 else lib.ndsm_diffusion_sweep_f64
+    else:
+        fn = lib.ndsm_diffusion_residual_f32 if f32 else lib.ndsm_diffusion_residual_f64
     nz, ny, nx = u.shape
     with torch.cuda.device(u.device):
         rc = fn(u.data_ptr(), rhs.data_ptr(), a.data_ptr(), out.data_ptr(), nz, ny, nx,

@@ -500,63 +500,31 @@ def _barrier(device, stream: int) -> torch.Tensor:
     return bar
 
 
-def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int, plan: Optional[MeanPlan] = None,
-                      previous: bool = False) -> torch.Tensor:
+def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int, plan: Optional[MeanPlan] = None
+                      ) -> torch.Tensor:
     """One launch of csrc/zc_smooth.cu's all-Neumann kernel on the route of
     ``plan`` (default :func:`mean_plan`'s; chip_smoke.py also runs the grid
-    route where the plan takes the block route).  ``previous``: the first
-    design instead (chip_smoke.py times it beside the kernel), 4 * nsweeps
-    + 1 launches: per sweep an out-of-place half-sweep that subtracts the
-    previous mean on load, an in-place half-sweep (one-lane calls of
-    fused_smooth.cu's half-sweep kernels) and the two reduction passes into
-    the device scalar ``m``; at the end the last mean subtracted in place."""
+    route where the plan takes the block route)."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nz, ny, nx = (int(s) for s in u.shape)
-    n = u.numel()
-    nblocks = mean_blocks(n)
+    nblocks = mean_blocks(u.numel())
     (wz, wy, wx), w0, first, _ = call_args(tuple(float(q) for q in dq), bcs)
-    nf = float(np.float32(n))
-    if not previous:
-        plan = mean_plan(u.shape) if plan is None else plan
-        out = torch.empty_like(u)
-        with torch.cuda.device(u.device):
-            stream = torch.cuda.current_stream(u.device).cuda_stream
-            grid = plan.route == "grid"
-            parts = torch.empty(nblocks, dtype=torch.float32, device=u.device) if grid else None
-            bar = _barrier(u.device, stream) if grid else None
-            cuda_build.check(lib.ndsm_mean_smooth_f32(
-                u.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-                parts.data_ptr() if grid else None, bar.data_ptr() if grid else None,
-                nz, ny, nx, nblocks, int(nsweeps), first,
-                0 if grid else 1, wz, wy, wx, w0, nf, stream), "zc_smooth_mean_3d")
-        return out
-    color, dmask, act = _lane_args((bcs,), (True,))
-    bufs = [torch.empty_like(u) for _ in range(min(2, int(nsweeps)))]
-    parts = torch.empty(nblocks, dtype=torch.float32, device=u.device)
-    m = torch.empty(1, dtype=torch.float32, device=u.device)
-    src, sub = u, None
+    nf = float(np.float32(u.numel()))
+    plan = mean_plan(u.shape) if plan is None else plan
+    out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        for k in range(int(nsweeps)):
-            dst = bufs[k % 2]
-            rcs = (
-                lib.ndsm_lane_half_oop_f32(
-                    src.data_ptr(), None, sub, rhs.data_ptr(), dst.data_ptr(),
-                    1, nz, ny, nx, color, dmask, act, wz, wy, wx, w0, stream),
-                lib.ndsm_lane_half_inplace_f32(
-                    dst.data_ptr(), rhs.data_ptr(), 1, nz, ny, nx, color, dmask, act, 1,
-                    wz, wy, wx, w0, stream),
-                lib.ndsm_sum_partials_f32(dst.data_ptr(), n, parts.data_ptr(), nblocks, stream),
-                lib.ndsm_sum_final_f32(parts.data_ptr(), nblocks, nf, m.data_ptr(), stream),
-            )
-            for rc in rcs:
-                cuda_build.check(rc, "zc_smooth_mean_3d")
-            src, sub = dst, m.data_ptr()
-        cuda_build.check(lib.ndsm_sub_scalar_f32(src.data_ptr(), m.data_ptr(), n, stream),
-                         "zc_smooth_mean_3d")
-    return src
+        grid = plan.route == "grid"
+        parts = torch.empty(nblocks, dtype=torch.float32, device=u.device) if grid else None
+        bar = _barrier(u.device, stream) if grid else None
+        cuda_build.check(lib.ndsm_mean_smooth_f32(
+            u.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+            parts.data_ptr() if grid else None, bar.data_ptr() if grid else None,
+            nz, ny, nx, nblocks, int(nsweeps), first,
+            0 if grid else 1, wz, wy, wx, w0, nf, stream), "zc_smooth_mean_3d")
+    return out
 
 
 # ----------------------------------------------------------------------

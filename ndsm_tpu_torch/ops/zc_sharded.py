@@ -149,49 +149,29 @@ def _zy(u_ext, offsets, extents, halos):
     return (int(offsets[0]), 0), (int(extents[0]), int(u_ext.shape[1])), (int(halos[0]), 0)
 
 
-def _smooth_cuda(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, residual, what,
-                 previous=False):
+def _smooth_cuda(u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos, residual, what):
     """One launch of the pass's shard form (csrc/zc_sharded.cu:
     ndsm_shard_pass_f32) with the plan of ``zc.shard_pass_plan``; u (and
-    r) of the real block, contiguous.  ``previous``: the first design
-    instead, 2 * nsweeps half-sweep launches over the whole block (+1
-    residual launch), u a view of the swept block (chip_smoke.py times it
-    beside the pass)."""
+    r) of the real block, contiguous."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
     nze, nye, nx = (int(s) for s in u_ext.shape)
     (z0, y0), (NZ, NY), (Hz, Hy) = _zy(u_ext, offsets, extents, halos)
     (wz, wy, wx), w0, red, dm = call_args(tuple(float(q) for q in dq), bcs)
-    zg0, yg0 = z0 - Hz, y0 - Hy
     nz, ny = nze - 2 * Hz, nye - 2 * Hy
-    out = torch.empty_like(u_ext) if previous else \
-        torch.empty((nz, ny, nx), dtype=torch.float32, device=u_ext.device)
+    out = torch.empty((nz, ny, nx), dtype=torch.float32, device=u_ext.device)
     r = torch.empty((nz, ny, nx), dtype=torch.float32, device=u_ext.device) if residual \
         else None
+    plan = shard_pass_plan((nze, nye, nx), (Hz, Hy), nsweeps, residual)
     with torch.cuda.device(u_ext.device):
         stream = torch.cuda.current_stream(u_ext.device).cuda_stream
-        if not previous:
-            plan = shard_pass_plan((nze, nye, nx), (Hz, Hy), nsweeps, residual)
-            cuda_build.check(lib.ndsm_shard_pass_f32(
-                u_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(),
-                r.data_ptr() if residual else None, nze, nye, nx, nz, ny, Hz, Hy, zg0, yg0,
-                NZ, NY, 1 if len(halos) == 2 else 0, red, dm, int(nsweeps), *plan.tile,
-                wz, wy, wx, w0, stream), what)
-            return (out, r) if residual else out
-        cuda_build.check(lib.ndsm_shard_half_oop_f32(
-            u_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(), nze, nye, nx, zg0, yg0,
-            NZ, NY, red, dm, wz, wy, wx, w0, stream), what)
-        for k in range(1, 2 * int(nsweeps)):
-            cuda_build.check(lib.ndsm_shard_half_inplace_f32(
-                out.data_ptr(), rhs_ext.data_ptr(), nze, nye, nx, zg0, yg0, NZ, NY,
-                red ^ (k % 2), dm, wz, wy, wx, w0, stream), what)
-        if residual:
-            cuda_build.check(lib.ndsm_shard_residual_f32(
-                out.data_ptr(), rhs_ext.data_ptr(), r.data_ptr(), nz, ny, nx, Hz, Hy, z0, y0,
-                NZ, NY, dm, wz, wy, wx, stream), what)
-    u = _real(out, (Hz, Hy), (nz, ny, nx))
-    return (u, r) if residual else u
+        cuda_build.check(lib.ndsm_shard_pass_f32(
+            u_ext.data_ptr(), rhs_ext.data_ptr(), out.data_ptr(),
+            r.data_ptr() if residual else None, nze, nye, nx, nz, ny, Hz, Hy, z0 - Hz,
+            y0 - Hy, NZ, NY, 1 if len(halos) == 2 else 0, red, dm, int(nsweeps), *plan.tile,
+            wz, wy, wx, w0, stream), what)
+    return (out, r) if residual else out
 
 
 def _smooth(fn, plain, name, u_ext, rhs_ext, dq, bcs, nsweeps, offsets, extents, halos,

@@ -45,35 +45,20 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 #: argtypes of every C entry point (restype is c_int for all).
 _SIGNATURES = {
-    "ndsm_sum_partials_f32": (_P, _L, _P, _I, _P),
-    "ndsm_sum_final_f32": (_P, _I, _F, _P, _P),
-    "ndsm_sub_scalar_f32": (_P, _P, _L, _P),
     "ndsm_mean_smooth_f32": (_P,) * 5 + (_I,) * 7 + (_F,) * 5 + (_P,),
     "ndsm_mean_resident_blocks": (_I, _I, _I),
     "ndsm_v2d_smooth_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P),
     "ndsm_v2d_lane_f32": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_F, _F, _F, _F, _P),
     "ndsm_defect_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
-    "ndsm_defect_point_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _P),
-    "ndsm_defect_blocks": (_I, _I, _I),
     "ndsm_defect_tile_blocks": (_I, _I, _I),
-    "ndsm_lane_half_inplace_f32": (_P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I,
-                                   _F, _F, _F, _F, _P),
-    "ndsm_lane_half_oop_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
-                               _F, _F, _F, _F, _P),
     "ndsm_lane_residual_f32": (_P, _P, _P, _I, _I, _I, _I, _IP, _IP, _F, _F, _F, _P),
     "ndsm_lane_pass_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I, _I, _I, _I,
                            _F, _F, _F, _F, _P),
-    "ndsm_compact_half_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP,
-                              _I, _F, _F, _F, _F, _P),
     "ndsm_compact_pass_f32": (_P,) * 6 + (_I,) * 4 + (_IP,) * 3 + (_I,) * 4 + (_F,) * 4 + (_P,),
     "ndsm_compact_split_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _IP, _P),
     "ndsm_compact_merge_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "ndsm_shard_half_oop_f32": (_P, _P, _P) + (_I,) * 9 + (_F, _F, _F, _F, _P),
-    "ndsm_shard_half_inplace_f32": (_P, _P) + (_I,) * 9 + (_F, _F, _F, _F, _P),
-    "ndsm_shard_residual_f32": (_P, _P, _P) + (_I,) * 10 + (_F, _F, _F, _P),
     "ndsm_shard_pass_f32": (_P,) * 4 + (_I,) * 18 + (_F,) * 4 + (_P,),
-    "ndsm_defect_sharded_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
     "ndsm_defect_sharded_tile_f64": (_P,) * 6 + (_I,) * 9 + (_D, _D, _D, _P),
     "ndsm_defect_sharded_tile_blocks": (_I, _I, _I),
     "ndsm_diffusion_sweep_f32": (_P,) * 4 + (_I,) * 5 + (_F,) * 3 + (_P,),

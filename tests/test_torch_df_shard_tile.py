@@ -246,8 +246,7 @@ def test_matches_jax_kernel():
 def test_cuda_shard_tile_bitwise_plain():
     """On the card: the shard tile equals the plain versions bitwise (r32,
     max, v over the whole extended block) on a z mesh and a (z, y) mesh of
-    blocks that cut y and x into partial tiles, and the previous design
-    agrees with it."""
+    blocks that cut y and x into partial tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     u, dq, rng = _case((13, 40, 37), 7)

@@ -6,6 +6,7 @@ import ast
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -201,6 +202,48 @@ def test_kernel_sources_packaged():
             "zc_sharded.cu", "stencil.cuh"} <= names
     text = (REPO / "pyproject.toml").read_text()
     assert '"ndsm_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in text
+
+
+# The C entry points of the kernel library that are not rows of
+# cuda_build._SIGNATURES, or that no module of the package calls, and why.
+_NOT_IN_TABLE = {"ndsm_error_string": "returns a string; kernels() sets its types apart"}
+_NO_CALLER = {"ndsm_mean_resident_blocks": "returns the card's resident blocks of the "
+              "all-Neumann cooperative grid, which chip_smoke.py prints and checks"}
+
+
+def _entry_points():
+    """{name: parameter count} of every ``extern "C"`` function of csrc/*.cu."""
+    found = {}
+    for path in sorted((PKG / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for name, params in re.findall(r'extern\s+"C"[^(;{]*?\b(ndsm_\w+)\s*\(([^)]*)\)', text):
+            params = params.strip()
+            found[name] = 0 if params in ("", "void") else params.count(",") + 1
+    return found
+
+
+_ENTRIES = _entry_points()
+
+
+def test_kernel_entry_points_are_the_ctypes_table():
+    """Every C entry point of the sources has a row in the ctypes table and
+    every row an entry point (a row without one fails only at load, on the
+    card; an entry point without a row is dead)."""
+    assert set(_ENTRIES) - set(_NOT_IN_TABLE) == set(cuda_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build._SIGNATURES))
+def test_kernel_entry_point_row_and_caller(name):
+    """The row's argument count is the entry point's parameter count (a
+    mismatch crashes only on the card), and a module of the package calls
+    the entry point as ``lib.<name>`` or ``kernels().<name>``."""
+    assert len(cuda_build._SIGNATURES[name]) == _ENTRIES.get(name), name
+    if name in _NO_CALLER:
+        return
+    pattern = re.compile(r"\b(?:lib|kernels\(\))\." + name + r"\b")
+    callers = [p for p in _modules() if p.name != "cuda_build.py"
+               and pattern.search(p.read_text())]
+    assert callers, f"{name}: no module of the package calls it"
 
 
 def test_dist_runs_and_meshes_take_no_device_on_their_own():

@@ -52,7 +52,7 @@ def warp_tree(vals: torch.Tensor) -> torch.Tensor:
 
 
 def fold(parts: torch.Tensor, nf: float, reversed_strides: bool = False) -> torch.Tensor:
-    """The fold of the partials (sum_final's order) and the division;
+    """The fold of the partials (the kernel's fold_mean) and the division;
     ``reversed_strides`` folds with strides 1, 2, .., 512 instead (a
     mutation)."""
     v = torch.zeros(SUM_THREADS, dtype=torch.float32)
