@@ -48,7 +48,18 @@ What the port changes:
     ops/diffusion.py).  Each call runs inside the span
     ``ndsm.op.relax`` or ``ndsm.op.residual`` (utils/profiling.py).  Its
     direct coarse solve uses ``operator.coarse_matrix``, or relaxes to
-    ``ex_tol`` when that is None.
+    ``ex_tol`` when that is None;
+  * on a CUDA device a V-cycle with its du (``t_vcycle_du``) is replayed
+    from a captured CUDA graph, one an engine and lane shape (mg/graphs.py:
+    the first cycle of a shape runs eagerly, the second is captured), where
+    the engine can see that the cycle reads nothing on the host: no
+    operator, the direct coarse solve, two levels or more, and the du
+    measured against the cycle's own input.  Everything else issues its
+    ops one by one from Python: CPU tensors, injected operators (whose
+    level terms ``held()`` frees after each solve), fp64's relaxed coarse
+    solve, a one-level hierarchy, and the sharded engine.  The graph runs
+    the same kernels on the same inputs, so the iterates are the eager
+    ones bit for bit.
 
 Besides the V-cycle, the reference's reduced drivers ``two_grid`` and
 ``one_grid`` (ndsm_multigrid_core.f90:385-441).
@@ -73,6 +84,7 @@ from ..ops.transfer import (
 from ..utils import profiling
 from ..utils.profiling import host_read
 from .coarse import build_coarse_solver_matrix
+from .graphs import CycleGraphs
 
 # Direct coarse solves are precomputed dense (pseudo)inverses; cap the
 # coarsest-level size for which that is sensible.
@@ -153,6 +165,11 @@ class MGEngine:
             )
 
         self._dq = [tuple(float(v) for v in d) for d in hierarchy.dq]
+        # The V-cycle's graphs (module docstring), where its cycle reads
+        # nothing on the host.
+        self._graphs = (CycleGraphs(zc.COUNTERS, zc.prepare_stream)
+                        if operator is None and self.coarse_direct and hierarchy.ngrids > 1
+                        else None)
 
         # Per-level-pair separable transfer matrices (numpy float64 built
         # exactly as in the JAX engine, then cast to the engine dtype).
@@ -298,37 +315,56 @@ class MGEngine:
         ndsm_multigrid_core.f90:341-377), issued inside the ``ndsm.vcycle``
         span.  Returns ``(u, coarse_noconv)``."""
         with profiling.span(profiling.VCYCLE):
-            L = self.h.ngrids
-            lanes = self._lanes(u)
-            us = [None] * L
-            rhss = [None] * L
-            us[0], rhss[0] = u, rhs
-            for l in range(L - 1):
-                ul, r = self.t_smooth_residual(us[l], rhss[l], l)
-                rhss[l + 1] = self.t_restrict(r, l)
-                us[l] = ul
-                us[l + 1] = torch.zeros(
-                    lanes + tuple(self.h.shapes[l + 1]), dtype=self.dtype, device=u.device
-                )
-            if self.coarse_direct and L > 1:
-                us[L - 1] = self.t_coarse_solve_direct(rhss[L - 1])
-                noconv = False
-            else:
-                us[L - 1], noconv = self.t_solve_exact(
-                    us[L - 1], rhss[L - 1], L - 1, ex_tol, nmax_exact
-                )
-            for l in range(L - 2, -1, -1):
-                uc = self.t_smooth(us[l + 1], rhss[l + 1], l + 1)
-                cor = self.t_prolong(uc, l)
-                us[l] = self.t_smooth_cor(us[l], cor, rhss[l], l)
-            return us[0], noconv
+            return self._vcycle(u, rhs, ex_tol, nmax_exact)
+
+    def _vcycle(self, u, rhs, ex_tol, nmax_exact):
+        """``t_vcycle`` outside its span."""
+        L = self.h.ngrids
+        lanes = self._lanes(u)
+        us = [None] * L
+        rhss = [None] * L
+        us[0], rhss[0] = u, rhs
+        for l in range(L - 1):
+            ul, r = self.t_smooth_residual(us[l], rhss[l], l)
+            rhss[l + 1] = self.t_restrict(r, l)
+            us[l] = ul
+            us[l + 1] = torch.zeros(
+                lanes + tuple(self.h.shapes[l + 1]), dtype=self.dtype, device=u.device
+            )
+        if self.coarse_direct and L > 1:
+            us[L - 1] = self.t_coarse_solve_direct(rhss[L - 1])
+            noconv = False
+        else:
+            us[L - 1], noconv = self.t_solve_exact(
+                us[L - 1], rhss[L - 1], L - 1, ex_tol, nmax_exact
+            )
+        for l in range(L - 2, -1, -1):
+            uc = self.t_smooth(us[l + 1], rhss[l + 1], l + 1)
+            cor = self.t_prolong(uc, l)
+            us[l] = self.t_smooth_cor(us[l], cor, rhss[l], l)
+        return us[0], noconv
+
+    def _cycle_du(self, u, rhs):
+        """The captured body: one V-cycle with the direct coarse solve and
+        its du against ``u``."""
+        u_new, _ = self._vcycle(u, rhs, None, None)
+        return u_new, self.t_metric(u_new, u)
 
     def t_vcycle_du(self, u, rhs, ex_tol, nmax_exact, u_ref):
         """t_vcycle plus the inter-iterate metric against ``u_ref``.
         Returns ``(u_new, coarse_noconv, du)`` with du a tensor (one entry
-        per lane)."""
-        u_new, noconv = self.t_vcycle(u, rhs, ex_tol, nmax_exact)
-        return u_new, noconv, self.t_metric(u_new, u_ref)
+        per lane).  Where the engine has graphs and ``u_ref is u``, CUDA
+        inputs replay the cycle's graph inside the ``ndsm.vcycle`` span
+        (module docstring; ``ex_tol`` and ``nmax_exact`` go unused by the
+        direct coarse solve)."""
+        g = (self._graphs.get(self._cycle_du, u, rhs)
+             if self._graphs is not None and u_ref is u else None)
+        if g is None:
+            u_new, noconv = self.t_vcycle(u, rhs, ex_tol, nmax_exact)
+            return u_new, noconv, self.t_metric(u_new, u_ref)
+        with profiling.span(profiling.VCYCLE):
+            u_new, du = g.replay(u, rhs)
+        return u_new, False, du
 
     def t_two_grid(self, u, rhs, ex_tol, nmax_exact):
         """Two-grid correction scheme for testing (reference two_grid,

@@ -148,6 +148,8 @@ LAUNCHES = "ndsm.launches."
 PLAIN_CUDA = "ndsm.plain_cuda."
 PASSES = "ndsm.passes."
 V2D_ROUTE = "ndsm.v2d_route."
+#: All four prefixes.
+COUNTERS = (LAUNCHES, PLAIN_CUDA, PASSES, V2D_ROUTE)
 
 
 def count_launch(fn) -> None:
@@ -498,6 +500,13 @@ def _barrier(device, stream: int) -> torch.Tensor:
     if bar is None:
         bar = _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
     return bar
+
+
+def prepare_stream(device, stream: int) -> None:
+    """Make what a launch on ``stream`` keeps across calls (the grid
+    route's barrier words), before a graph capture on it: made during the
+    capture, they would lie in the graph's pool, zeroed only by a replay."""
+    _barrier(torch.device(device), stream)
 
 
 def _mean_sweeps_cuda(u, rhs, dq, bcs, nsweeps: int, plan: Optional[MeanPlan] = None

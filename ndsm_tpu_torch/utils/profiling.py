@@ -28,6 +28,9 @@ The registry (in memory; nothing is written out):
     "raised", "stats"}``, ``stats`` holding ``{name: (count, inclusive s,
     self s)}`` of every span and counter that moved in the call (a
     counter's seconds are 0);
+  * ``withheld(prefixes)``: the counters with those prefixes that moved
+    inside the block, taken back out of the totals and the open call (a
+    graph capture's launches, which run only when it is replayed);
   * ``stats()``, ``counter(name)`` read the totals since the last
     ``reset()``.
 
@@ -40,7 +43,12 @@ The spans and counters of the program:
   ``ndsm.post_phase`` the pipeline's phases
   ``ndsm.sync``       one host read of a device value, or one explicit
                       synchronise: the read alone, no reduction before it
-  ``ndsm.vcycle``     the host issuing one V-cycle
+  ``ndsm.vcycle``     the host issuing one V-cycle: its ops one by one, or
+                      the replay of its captured graph (mg/graphs.py)
+  ``ndsm.graph.captures``, ``ndsm.graph.replays``, ``ndsm.graph.failed``
+                      counters: V-cycle graphs captured (one an engine and
+                      lane shape, in ``ndsm.build``), replayed, and whose
+                      capture raised (that key then runs eagerly)
   ``ndsm.build``      an engine, solver, handle or mask built on a cache miss
   ``ndsm.rebuild``    counter: a miss on a key the cache had evicted
   ``ndsm.fetch.chunks``, ``ndsm.fetch.bytes``
@@ -81,8 +89,8 @@ from typing import Iterator, Optional
 import torch
 import torch.autograd.profiler as _ap
 
-__all__ = ["trace", "Timer", "span", "count", "host_read", "call", "calls", "stats",
-           "counter", "reset"]
+__all__ = ["trace", "Timer", "span", "count", "withheld", "host_read", "call", "calls",
+           "stats", "counter", "reset"]
 
 UPLOAD = "ndsm.upload"
 FETCH = "ndsm.fetch"
@@ -102,6 +110,9 @@ OP_RELAX = "ndsm.op.relax"
 OP_RESIDUAL = "ndsm.op.residual"
 OP_TERMS = "ndsm.op.terms"
 OP_COARSE_BUILD = "ndsm.op.coarse_build"
+GRAPH_CAPTURES = "ndsm.graph.captures"
+GRAPH_REPLAYS = "ndsm.graph.replays"
+GRAPH_FAILED = "ndsm.graph.failed"
 
 #: Spans that open a profiler range whenever a profiler records.
 RANGES = frozenset({UPLOAD, FETCH, FACES, CHI, SOLVE3D, POST, SYNC})
@@ -269,6 +280,24 @@ def count(name: str, n: int = 1) -> None:
     _REG.slot(name)[0] += n
     if _open is not None:
         _open.slot(name)[0] += n
+
+
+@contextlib.contextmanager
+def withheld(prefixes: tuple) -> Iterator[dict]:
+    """Yield a dict that, when the block ends (even by an exception),
+    holds ``{name: n}`` of the counters whose names start with one of
+    ``prefixes`` and moved inside it; those moves are taken back out of the
+    totals and of the open call."""
+    before = {name: v[0] for name, v in _REG.d.items() if name.startswith(prefixes)}
+    moved: dict = {}
+    try:
+        yield moved
+    finally:
+        for name, v in _REG.d.items():
+            if name.startswith(prefixes) and v[0] != before.get(name, 0):
+                moved[name] = v[0] - before.get(name, 0)
+        for name, n in moved.items():
+            count(name, -n)
 
 
 @contextlib.contextmanager

@@ -66,12 +66,19 @@ def test_no_jax_import_in_source():
 def test_no_exception_handlers_in_package():
     """No broad try/except anywhere in the port: a kernel error is never
     turned into a plain-torch run, a missing device never into a CPU run.
-    The one handler allowed is the LRU cache's ``except KeyError``."""
+    The handlers allowed are the LRU cache's ``except KeyError`` and one
+    ``except RuntimeError`` in mg/graphs.py around a CUDA graph's capture,
+    after which the same kernels run eagerly (their errors still raise)."""
+    handlers = []
     for path in _modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.ExceptHandler):
                 caught = node.type.id if isinstance(node.type, ast.Name) else None
+                if caught == "RuntimeError" and path == PKG / "mg" / "graphs.py":
+                    handlers.append(node)
+                    continue
                 assert caught == "KeyError", f"{path}:{node.lineno} catches {ast.dump(node.type)}"
+    assert len(handlers) == 1
 
 
 def test_cuda_device_raises_without_card():
