@@ -224,6 +224,20 @@ def _phase_post_acorr(A, phi, xs, ys, zs, Lq, out_dtype):
     return A.to(out_dtype)
 
 
+def _split16(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """split16's encoding of float64 A on its device: hi = f32(A), corr =
+    A - f64(hi), s = max|corr| and q = round(corr * 32767 / s) as int16
+    (scale 0 when s = 0).  Returns (hi, q, s / 32767), the last read on
+    the host once q is enqueued."""
+    hi = A.to(torch.float32)
+    corr = A - hi.to(torch.float64)
+    s = torch.max(torch.abs(corr))
+    scale = torch.where(s > 0, 32767.0 / s, torch.zeros_like(s))
+    q = torch.round(corr * scale).to(torch.int16)
+    del corr
+    return hi, q, host_read(float, s) / 32767.0
+
+
 def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.ndarray]:
     """Copy A (3, nz, ny, nx) to the host in z slabs and take B = curl(A)
     there, slab by slab as each slab's neighbourhood lands (JAX
@@ -240,11 +254,15 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
     device), "fetch" (every slab on the host) and "curl" (the last curl).
 
     ``encoding="split16"`` with float64 A of at least ``SPLIT16_MIN_MB``:
-    the device computes hi = f32(A), corr = A - f64(hi), s = max|corr|
-    and q = round(corr * 32767 / s) as int16 (scale 0 when s = 0), the
-    slabs of hi and q cross (6 bytes a point instead of 8), and the host
-    rebuilds hi + q * (s / 32767), within max|A - f32(A)| / 32767 of A.
-    A failure of the encoding raises; nothing falls back to the raw copy.
+    the device encodes A (``_split16``), the slabs of hi and q cross (6
+    bytes a point instead of 8), and the host rebuilds hi + q * (s /
+    32767), within max|A - f32(A)| / 32767 of A.  A failure of the
+    encoding raises; nothing falls back to the raw copy.
+
+    The caller's registry records the ``ndsm.hostcurl.*`` spans
+    (``encode``, ``fetch``, ``curl``), all opened on this thread, and
+    counts the slab copies, the bytes that crossed and the bytes of the
+    fresh host arrays of A and B (``utils.profiling``).
 
     Left out of the JAX pipeline: its several concurrent download streams
     (``NDSM_TPU_FETCH_STREAMS``), which served a network relay that capped
@@ -266,19 +284,17 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
     wire = (torch.float32, torch.int16) if split16 else (A.dtype,)
     if cuda:
         pinned = [torch.empty(shape, dtype=d, pin_memory=True) for d in wire]
-    host = np.empty(shape, dtype=out_dtype) if split16 or not cuda else pinned[0].numpy()
+    fresh = split16 or not cuda
+    host = np.empty(shape, dtype=out_dtype) if fresh else pinned[0].numpy()
     B = np.empty(shape, dtype=host.dtype)
+    profiling.count(profiling.HOSTCURL_FRESH_BYTES, B.nbytes + (host.nbytes if fresh else 0))
     mark("host_alloc")
 
     inv_scale = 0.0
     if split16:
-        hi = A.to(torch.float32)
-        corr = A - hi.to(torch.float64)
-        s = torch.max(torch.abs(corr))
-        scale = torch.where(s > 0, 32767.0 / s, torch.zeros_like(s))
-        src = (hi, torch.round(corr * scale).to(torch.int16))
-        del corr
-        inv_scale = host_read(float, s) / 32767.0
+        with profiling.span(profiling.HOSTCURL_ENCODE):
+            hi, q, inv_scale = _split16(A)
+        src = (hi, q)
     else:
         src = (A,)
     mark("slab_split")
@@ -297,6 +313,8 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
         wire_np = [p.numpy() for p in pinned]
     else:
         wire_np = [a.numpy() for a in src]
+    profiling.count(profiling.HOSTCURL_SLABS, len(tasks))
+    profiling.count(profiling.HOSTCURL_WIRE_BYTES, sum(a.numel() * a.element_size() for a in src))
 
     done = np.zeros((3, nslab), dtype=bool)
     curled = np.zeros(nslab, dtype=bool)
@@ -326,19 +344,21 @@ def _fetch_and_curl(A, dq, out_dtype, mark, encoding) -> Tuple[np.ndarray, np.nd
                                      for a, b in ((z0, zm), (zm, z1)) if b > a)
 
     try:
-        rebuilt = []
-        for t in tasks:
-            if cuda:
-                host_read(events[t].synchronize)
-            if split16:
-                rebuilt.append(pool.submit(land, *t))
-            else:
-                land(*t)
-        for f in rebuilt:
-            f.result()
+        with profiling.span(profiling.HOSTCURL_FETCH):
+            rebuilt = []
+            for t in tasks:
+                if cuda:
+                    host_read(events[t].synchronize)
+                if split16:
+                    rebuilt.append(pool.submit(land, *t))
+                else:
+                    land(*t)
+            for f in rebuilt:
+                f.result()
         mark("fetch")
-        for f in curl_futs:
-            f.result()
+        with profiling.span(profiling.HOSTCURL_CURL):
+            for f in curl_futs:
+                f.result()
     finally:
         pool.shutdown(wait=True)
     if not curled.all():
@@ -611,7 +631,8 @@ def compute_vector_potential(
                                int(options.flux_correction_order), out_dtype)
         _mark("post")
     if host_curl:
-        A, B = _fetch_and_curl(A, dq_t, options.output_dtype, _mark, options.fetch_encoding)
+        with profiling.span(profiling.HOSTCURL):
+            A, B = _fetch_and_curl(A, dq_t, options.output_dtype, _mark, options.fetch_encoding)
 
     ierr = max([s.ierr for s in chi_info] + [s.ierr for s in comp_info])
     info = VectorPotentialInfo(

@@ -68,14 +68,29 @@ The spans and counters of the program:
                       ``DiffusionOperator.coarse_matrix`` assembling its
                       dense coarse matrix
                       (``coarse.build_coarse_matrix_from_operator``)
+  ``ndsm.hostcurl``   ``Options.host_curl``'s copy of A and curl on the
+                      host, the whole of ``_fetch_and_curl``; nested in it
+                      ``ndsm.hostcurl.encode`` (split16 on the device, with
+                      its read of the scale), ``ndsm.hostcurl.fetch`` (the
+                      first slab's wait until every slab is on the host and
+                      rebuilt) and ``ndsm.hostcurl.curl`` (the wait on the
+                      curls left after the last slab); all on the calling
+                      thread, none in the pool's
+  ``ndsm.hostcurl.slabs``, ``ndsm.hostcurl.wire_bytes``,
+  ``ndsm.hostcurl.fresh_bytes``
+                      counters: the slab copies enqueued, the bytes that
+                      crossed (6 a point under split16), and the bytes of
+                      host arrays allocated fresh for A and B
   ==================  =====================================================
 
 Only the ranges in ``RANGES`` reach a profiler by default: each lies
-outside the solve phases or encloses no kernel, so a trace that gives a
-kernel to its innermost range still gives every solve kernel to
-``ndsm.chi_phase`` or ``ndsm.solve3d_phase``.  ``ndsm.vcycle``,
-``ndsm.build`` and the ``ndsm.op.*`` spans enclose kernels inside those
-phases and open ranges only under ``trace(log_dir, detail=True)``.
+outside the solve phases or encloses no kernel (the ``ndsm.hostcurl``
+spans, after the phases, enclose only split16's kernels and the slab
+copies), so a trace that gives a kernel to its innermost range still
+gives every solve kernel to ``ndsm.chi_phase`` or ``ndsm.solve3d_phase``.
+``ndsm.vcycle``, ``ndsm.build`` and the ``ndsm.op.*`` spans enclose
+kernels inside those phases and open ranges only under
+``trace(log_dir, detail=True)``.
 """
 
 from __future__ import annotations
@@ -113,9 +128,17 @@ OP_COARSE_BUILD = "ndsm.op.coarse_build"
 GRAPH_CAPTURES = "ndsm.graph.captures"
 GRAPH_REPLAYS = "ndsm.graph.replays"
 GRAPH_FAILED = "ndsm.graph.failed"
+HOSTCURL = "ndsm.hostcurl"
+HOSTCURL_ENCODE = "ndsm.hostcurl.encode"
+HOSTCURL_FETCH = "ndsm.hostcurl.fetch"
+HOSTCURL_CURL = "ndsm.hostcurl.curl"
+HOSTCURL_SLABS = "ndsm.hostcurl.slabs"
+HOSTCURL_WIRE_BYTES = "ndsm.hostcurl.wire_bytes"
+HOSTCURL_FRESH_BYTES = "ndsm.hostcurl.fresh_bytes"
 
 #: Spans that open a profiler range whenever a profiler records.
-RANGES = frozenset({UPLOAD, FETCH, FACES, CHI, SOLVE3D, POST, SYNC})
+RANGES = frozenset({UPLOAD, FETCH, FACES, CHI, SOLVE3D, POST, SYNC, HOSTCURL, HOSTCURL_ENCODE,
+                    HOSTCURL_FETCH, HOSTCURL_CURL})
 #: Spans that open one only under ``trace(detail=True)``.
 DETAIL_RANGES = frozenset({VCYCLE, BUILD, OP_RELAX, OP_RESIDUAL, OP_COARSE_BUILD})
 #: Per-call records ``calls()`` keeps.
