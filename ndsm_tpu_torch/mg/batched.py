@@ -43,6 +43,19 @@ float64 tensor per lane (JAX carried an f32 pair).  ``ex_tol_eff`` uses
 the largest max|r| over all lanes, as in JAX: a lane that froze keeps the
 max|r| of its last defect, taken once with its final correction applied.
 
+On a CUDA device, where the cycle reads nothing on the host (the direct
+coarse solve, two levels or more), a V-cycle with its du is replayed from a
+captured CUDA graph (mg/graphs.py), one a pattern of active lanes and input
+shape: the pattern decides which lanes the transfers and the coarse solve
+touch and the kernels' lane flags.  The graphs start with the solver's
+second solve: a solver built for one solve (one a cache evicts at once)
+runs eagerly and captures nothing.  Then the first cycle of a pattern runs
+eagerly, the second is captured.  The solver's graphs share one memory pool
+and one set of static inputs, and the lane masks the plain levels build
+from a pattern are made once (``_sel``), never inside a capture.  The graph
+runs the same kernels on the same inputs, so every lane's iterate and du
+are the eager ones bit for bit.
+
 Not ported, because it exists only for the TPU (ROADMAP.md "Not ported"):
 the padded work storage (``_plan_padding``, ``_pad0/_unpad0``,
 ``_work_shapes``, ``_interp_w/_restrict_w``; the port's kernels take every
@@ -67,7 +80,7 @@ import numpy as np
 import torch
 
 from ..grids import GridHierarchy
-from ..ops import compact, df, fused, stencils, stencils_compact
+from ..ops import compact, df, fused, stencils, stencils_compact, zc
 from ..ops.reduce import du_metrics
 from ..ops.transfer import (
     apply_axis_matrices,
@@ -81,6 +94,7 @@ from ..utils.device import resolve_device
 from ..utils.msgs import debug_msg
 from ..utils.profiling import host_read
 from .coarse import build_coarse_solver_matrix
+from .graphs import CycleGraphs
 from .poisson import _EPS32, PoissonBVP, _np_dtype
 
 __all__ = ["MultiBCSolver"]
@@ -147,6 +161,8 @@ class MultiBCSolver:
         ]
         # Per-level per-lane (first colour, second colour, interior) masks.
         self._masks = [fused.lane_masks(s, self.bcs_list, dev) for s in hierarchy.shapes]
+        # Per pattern of active lanes, its (B, 1, ..., 1) bool tensor.
+        self._sels: dict = {}
         # Per-lane full-size coarse solvers (identity-free embedding: rows
         # outside the lane's interior produce e = 0).
         if self.coarse_direct:
@@ -157,6 +173,12 @@ class MultiBCSolver:
                 rows = np.flatnonzero(int_mask)
                 S_stack[b][np.ix_(rows, rows)] = S
             self._coarse_S = torch.as_tensor(S_stack, dtype=dt, device=dev)
+        # The V-cycle's graphs (module docstring), where its cycle reads
+        # nothing on the host; replayed once a solve has ended.
+        self._graphs = (CycleGraphs(zc.COUNTERS, zc.prepare_stream)
+                        if self.device.type == "cuda" and self.coarse_direct
+                        and hierarchy.ngrids > 1 else None)
+        self._solved = False
 
     # -- level ops (``act``: per-lane active flags) -------------------------
 
@@ -164,7 +186,20 @@ class MultiBCSolver:
         return u.dtype == torch.float32 and self.h.ndim == 3
 
     def _sel(self, act) -> torch.Tensor:
-        return torch.tensor(act, device=self.device).view((self.B,) + (1,) * self.h.ndim)
+        """``act`` as a (B, 1, ..., 1) bool tensor, made at a pattern's first
+        use (its eager cycle, so never inside a capture) and kept."""
+        key = tuple(bool(a) for a in act)
+        sel = self._sels.get(key)
+        if sel is None:
+            sel = self._sels[key] = torch.tensor(key, device=self.device).view(
+                (self.B,) + (1,) * self.h.ndim)
+        return sel
+
+    def _lane_masks(self, level, act):
+        """The level's lane masks with the frozen lanes cleared
+        (``fused.lane_sweeps``'s own freezing, from the kept ``_sel``)."""
+        masks = self._masks[level]
+        return masks if all(act) else tuple(m & self._sel(act) for m in masks)
 
     def _smooth(self, u, rhs, level, n, act):
         if n == 0:
@@ -174,7 +209,7 @@ class MultiBCSolver:
             if self._compact[level]:
                 return compact.smooth_dense(u, rhs, dq, self.bcs_list, n, None, act)
             return fused.fused_smooth_3d_batched(u, rhs, dq, self.bcs_list, n, act)
-        return fused.lane_sweeps(u, rhs, dq, self._masks[level], n, act)
+        return fused.lane_sweeps(u, rhs, dq, self._lane_masks(level, act), n)
 
     def _smooth_residual(self, u, rhs, level, act):
         """ms pre-smooth sweeps + residual per lane: (u, r)."""
@@ -184,7 +219,7 @@ class MultiBCSolver:
                 return compact.smooth_residual_dense(u, rhs, dq, self.bcs_list, ms, act)
             return fused.fused_smooth_residual_3d_batched(u, rhs, dq, self.bcs_list, ms, act)
         u = self._smooth(u, rhs, level, ms, act)
-        return u, fused.lane_residual(u, rhs, dq, self._masks[level], act)
+        return u, fused.lane_residual(u, rhs, dq, self._lane_masks(level, act))
 
     def _smooth_cor(self, u, cor, rhs, level, act):
         """ms post-smooth sweeps per lane on (u + cor)."""
@@ -215,13 +250,20 @@ class MultiBCSolver:
                 torch.mv(self._coarse_S[b], rhs[b].reshape(-1), out=e[b].view(-1))
         return e
 
-    def _metric(self, a, b, act) -> List[float]:
-        """Per-lane du (the engine's ``t_metric`` on each active lane), read
-        on the host in one sync; 0.0 for frozen lanes."""
-        vals = [du_metrics(a[k], b[k])[0 if self.options.du_max else 1]
-                for k in range(self.B) if act[k]]
-        got = iter(host_read(torch.stack(vals).tolist))
+    def _du(self, a, b, act) -> torch.Tensor:
+        """Per-lane du (the engine's ``t_metric`` on each active lane), one
+        entry an active lane, on the device."""
+        return torch.stack([du_metrics(a[k], b[k])[0 if self.options.du_max else 1]
+                            for k in range(self.B) if act[k]])
+
+    def _read(self, du, act) -> List[float]:
+        """``_du``'s entries read on the host in one sync; 0.0 for frozen
+        lanes."""
+        got = iter(host_read(du.tolist))
         return [next(got) if act[k] else 0.0 for k in range(self.B)]
+
+    def _metric(self, a, b, act) -> List[float]:
+        return self._read(self._du(a, b, act), act)
 
     def _coarse_relax(self, u, rhs, level, ex_tol, nmax_exact, act):
         """Per-lane relax-to-ex_tol with lane freezing (the engine's
@@ -247,32 +289,53 @@ class MultiBCSolver:
         unchanged), issued inside the ``ndsm.vcycle`` span.  Returns (u,
         per-lane coarse noconv)."""
         with profiling.span(profiling.VCYCLE):
-            L, shapes = self.h.ngrids, self.h.shapes
-            us = [None] * L
-            rhss = [None] * L
-            us[0], rhss[0] = u, rhs
-            for l in range(L - 1):
-                ul, r = self._smooth_residual(us[l], rhss[l], l, act)
-                rhss[l + 1] = self._transfer(r, self._restrict[l], shapes[l + 1], act)
-                us[l] = ul
-                us[l + 1] = torch.zeros((self.B,) + tuple(shapes[l + 1]), dtype=u.dtype,
-                                        device=u.device)
-            if self.coarse_direct:
-                us[L - 1] = self._coarse_solve(rhss[L - 1], act)
-                noconv = [False] * self.B
-            else:
-                us[L - 1], noconv = self._coarse_relax(us[L - 1], rhss[L - 1], L - 1, ex_tol,
-                                                       nmax_exact, act)
-            for l in range(L - 2, -1, -1):
-                uc = self._smooth(us[l + 1], rhss[l + 1], l + 1, self.options.ms, act)
-                cor = self._transfer(uc, self._interp[l], shapes[l], act)
-                us[l] = self._smooth_cor(us[l], cor, rhss[l], l, act)
-            return us[0], noconv
+            return self._cycle(u, rhs, ex_tol, nmax_exact, act)
+
+    def _cycle(self, u, rhs, ex_tol, nmax_exact, act):
+        """``_vcycle`` outside its span."""
+        L, shapes = self.h.ngrids, self.h.shapes
+        us = [None] * L
+        rhss = [None] * L
+        us[0], rhss[0] = u, rhs
+        for l in range(L - 1):
+            ul, r = self._smooth_residual(us[l], rhss[l], l, act)
+            rhss[l + 1] = self._transfer(r, self._restrict[l], shapes[l + 1], act)
+            us[l] = ul
+            us[l + 1] = torch.zeros((self.B,) + tuple(shapes[l + 1]), dtype=u.dtype,
+                                    device=u.device)
+        if self.coarse_direct:
+            us[L - 1] = self._coarse_solve(rhss[L - 1], act)
+            noconv = [False] * self.B
+        else:
+            us[L - 1], noconv = self._coarse_relax(us[L - 1], rhss[L - 1], L - 1, ex_tol,
+                                                   nmax_exact, act)
+        for l in range(L - 2, -1, -1):
+            uc = self._smooth(us[l + 1], rhss[l + 1], l + 1, self.options.ms, act)
+            cor = self._transfer(uc, self._interp[l], shapes[l], act)
+            us[l] = self._smooth_cor(us[l], cor, rhss[l], l, act)
+        return us[0], noconv
+
+    def _cycle_du(self, u, rhs, act):
+        """The captured body: one V-cycle of the ``act`` lanes with the
+        direct coarse solve, and its ``_du`` against ``u``."""
+        u_new, _ = self._cycle(u, rhs, None, None, act)
+        return u_new, self._du(u_new, u, act)
 
     def _vcycle_du(self, u, rhs, ex_tol, nmax_exact, act):
-        """_vcycle plus the per-lane metric against the pre-cycle iterate."""
-        u_new, noconv = self._vcycle(u, rhs, ex_tol, nmax_exact, act)
-        return u_new, noconv, self._metric(u_new, u, act)
+        """_vcycle plus the per-lane metric against the pre-cycle iterate.
+        Where the solver has graphs and has ended a solve, CUDA inputs
+        replay the graph of their shapes and ``act`` inside the
+        ``ndsm.vcycle`` span (module docstring); the metric's one read
+        follows either way."""
+        act = tuple(bool(a) for a in act)
+        g = (self._graphs.get(lambda x, r: self._cycle_du(x, r, act), u, rhs, tag=act)
+             if self._graphs is not None and self._solved else None)
+        if g is None:
+            u_new, noconv = self._vcycle(u, rhs, ex_tol, nmax_exact, act)
+            return u_new, noconv, self._metric(u_new, u, act)
+        with profiling.span(profiling.VCYCLE):
+            u_new, du = g.replay(u, rhs)
+        return u_new, [False] * self.B, self._read(du, act)
 
     # -- defect groups and solve loops ---------------------------------
 
@@ -409,6 +472,7 @@ class MultiBCSolver:
         if self.device.type == "cuda":
             host_read(torch.cuda.synchronize, self.device)
         wall = time.perf_counter() - t0
+        self._solved = True
         infos = [
             SolveInfo(
                 ierr=IERR_SUCCESS if du[b] < vc_tol else IERR_COVFAIL,

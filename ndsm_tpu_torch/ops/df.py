@@ -12,7 +12,9 @@ and ``update`` variants).
   * ``mx = max|r32|`` as a 0-d float32 tensor on the device.
 
 With ``r32_out`` (a contiguous float32 tensor of u's shape, e.g. one lane
-of a stack) r32 is written there and returned, instead of a new tensor.
+of a stack) r32 is written there and returned, instead of a new tensor; the
+kernel's write moves its version (``Tensor._version``) as an in-place torch
+op would, so that a CUDA graph's replay (mg/graphs.py) copies it anew.
 
 Float64 throughout: the TPU kernel carried u as an f32 (hi, lo) pair only
 because f64 was emulated there; Hopper has it natively.  On a CUDA tensor
@@ -82,7 +84,7 @@ def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None):
     (wz, wy, wx), _ = stencils.stencil_weights(dq, torch.float64)
     r32 = torch.empty(u.shape, dtype=torch.float32, device=u.device) if r32_out is None \
         else r32_out
-    u_new = torch.empty_like(u) if e is not None else u
+    u_new = None if e is None else torch.empty_like(u)
     with torch.cuda.device(u.device):
         block_max = torch.empty(lib.ndsm_defect_tile_blocks(nz, ny, nx), dtype=torch.float32,
                                 device=u.device)
@@ -90,10 +92,12 @@ def _defect_cuda(u, rhs, e, dq, bcs, r32_out=None):
         rc = lib.ndsm_defect_f64(
             u.data_ptr(),
             None if e is None else e.data_ptr(),
-            None if e is None else u_new.data_ptr(),
+            None if u_new is None else u_new.data_ptr(),
             None if rhs is None else rhs.data_ptr(),
             r32.data_ptr(), block_max.data_ptr(), nz, ny, nx,
             dirichlet_mask(bcs), wz, wy, wx, stream,
         )
         cuda_build.check(rc, "df_residual_3d")
-    return r32, torch.max(block_max), u_new
+    if r32_out is not None:
+        torch.autograd.graph.increment_version(r32_out)
+    return r32, torch.max(block_max), u if u_new is None else u_new

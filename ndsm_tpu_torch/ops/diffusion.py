@@ -133,9 +133,8 @@ def diffusion_sweep(u, rhs, a, w, bcs, flip: int = 0, terms=None) -> torch.Tenso
         raise ValueError(f"diffusion_sweep: flip must be 0 or 1, got {flip}")
     if u.device.type == "cpu":
         return diffusion_sweep_plain(u, rhs, a, w, bcs, flip, terms)
-    out = torch.empty_like(u)
     c0 = stencils.first_color_parity(bcs) ^ flip
-    _launch("sweep", u, rhs, a, out, bcs, w, c0)
+    out = _launch("sweep", u, rhs, a, bcs, w, c0)
     count_launch(diffusion_sweep)
     return out
 
@@ -146,16 +145,18 @@ def diffusion_residual(u, rhs, a, w, bcs, terms=None) -> torch.Tensor:
     bcs = _check("diffusion_residual", u, rhs, a, w, bcs)
     if u.device.type == "cpu":
         return diffusion_residual_plain(u, rhs, a, w, bcs, terms)
-    out = torch.empty_like(u)
-    _launch("residual", u, rhs, a, out, bcs, w)
+    out = _launch("residual", u, rhs, a, bcs, w)
     count_launch(diffusion_residual)
     return out
 
 
-def _launch(kind: str, u, rhs, a, out, bcs, w, *extra) -> None:
+def _launch(kind: str, u, rhs, a, bcs, w, *extra) -> torch.Tensor:
+    """One launch of the ``kind`` kernel into a new tensor of u's shape,
+    which it returns."""
     from ..utils import cuda_build
 
     lib = cuda_build.kernels()
+    out = torch.empty_like(u)
     f32 = u.dtype == torch.float32
     if kind == "sweep":
         fn = lib.ndsm_diffusion_sweep_f32 if f32 else lib.ndsm_diffusion_sweep_f64
@@ -167,3 +168,4 @@ def _launch(kind: str, u, rhs, a, out, bcs, w, *extra) -> None:
                 dirichlet_mask(bcs), *extra, *w,
                 torch.cuda.current_stream(u.device).cuda_stream)
     cuda_build.check(rc, f"diffusion_{kind}")
+    return out

@@ -253,6 +253,138 @@ def test_kernel_entry_point_row_and_caller(name):
     assert callers, f"{name}: no module of the package calls it"
 
 
+def _written_positions():
+    """{name: positions} of the pointers each ``extern "C"`` function of
+    csrc/*.cu writes through: its pointer parameters that are not const,
+    the stream aside."""
+    found = {}
+    for path in sorted((PKG / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        for name, params in re.findall(r'extern\s+"C"[^(;{]*?\b(ndsm_\w+)\s*\(([^)]*)\)', text):
+            ps = [q.strip() for q in params.split(",")]
+            found[name] = [i for i, q in enumerate(ps)
+                           if "*" in q and "const" not in q and not q.endswith("stream")]
+    return found
+
+
+#: Tensor methods whose result may share its argument's storage.
+_VIEWS = {"view", "view_as", "reshape", "flatten", "unflatten", "squeeze", "unsqueeze",
+          "select", "narrow", "transpose", "permute", "expand", "as_strided", "contiguous",
+          "unbind", "chunk", "split", "detach"}
+
+
+def _root(node):
+    """The name an ``x``, ``x[...]`` or ``x.attr`` expression starts from."""
+    while isinstance(node, (ast.Subscript, ast.Attribute)):
+        node = node.value
+    return node.id if isinstance(node, ast.Name) else None
+
+
+def _caller_held(fn):
+    """{name: the parameters it may hold} of the names in ``fn`` that may
+    hold what its caller passed: its parameters, and locals bound to one, a
+    view of one or either branch of a conditional of one."""
+    a = fn.args
+    params = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    params += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    held = {p: {p} for p in params}
+
+    def sources(e):
+        if isinstance(e, ast.Name):
+            return held.get(e.id, set())
+        if isinstance(e, ast.IfExp):
+            return sources(e.body) | sources(e.orelse)
+        if isinstance(e, (ast.Subscript, ast.Starred)):
+            return sources(e.value)
+        if isinstance(e, (ast.Tuple, ast.List)):
+            return set().union(*(sources(x) for x in e.elts))
+        if isinstance(e, ast.Call) and isinstance(e.func, ast.Attribute) \
+                and e.func.attr in _VIEWS:
+            return sources(e.func.value)
+        return set()
+
+    changed = True
+    while changed:
+        changed = False
+        for node in ast.walk(fn):
+            pairs = ([(t, node.value) for t in node.targets] if isinstance(node, ast.Assign)
+                     else [(node.target, node.iter)] if isinstance(node, ast.For) else [])
+            for target, value in pairs:
+                got = sources(value)
+                for n in ast.walk(target):
+                    if got and isinstance(n, ast.Name) and not got <= held.get(n.id, set()):
+                        held[n.id] = held.get(n.id, set()) | got
+                        changed = True
+    return held
+
+
+def _kernel_writes(fn, written):
+    """(line, entry point, root name) of each tensor that ``fn`` passes a
+    kernel as ``<x>.data_ptr()`` at a position the kernel writes through
+    (called as ``lib.<entry>`` or through a local bound to such)."""
+    aliases = {}
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            names = {x.attr for x in ast.walk(node.value)
+                     if isinstance(x, ast.Attribute) and x.attr in written}
+            if names:
+                aliases[node.targets[0].id] = names
+    found = []
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        entries = ({f.attr} if isinstance(f, ast.Attribute) and f.attr in written
+                   else aliases.get(f.id, set()) if isinstance(f, ast.Name) else set())
+        starred = [i for i, x in enumerate(node.args) if isinstance(x, ast.Starred)]
+        for entry in entries:
+            for i in written[entry]:
+                assert not starred or i < starred[0], (
+                    f"{fn.name}:{node.lineno}: {entry}'s written argument {i} follows a *arg")
+                for c in ast.walk(node.args[i]):
+                    if isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute) \
+                            and c.func.attr == "data_ptr":
+                        found.append((node.lineno, entry, _root(c.func.value)))
+    return found
+
+
+def test_a_kernel_write_into_a_callers_tensor_moves_its_version():
+    """A kernel writes through a raw pointer, which moves no tensor's
+    version (``Tensor._version``) as an in-place torch op does.  A CUDA
+    graph's replay (mg/graphs.py) skips copying in an input it holds at the
+    same version, so a wrapper that has a kernel write into a tensor its
+    caller passed (``df_residual_3d``'s ``r32_out``) must call
+    ``torch.autograd.graph.increment_version`` on it: else a replay would
+    run on the stale copy.  Tensors a wrapper makes itself need nothing."""
+    written = _written_positions()
+    sites, held_sites = 0, []
+    for path in _modules():
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            writes = _kernel_writes(fn, written)
+            if not writes:
+                continue
+            held = _caller_held(fn)
+            bumped = {_root(c.args[0]) for c in ast.walk(fn)
+                      if isinstance(c, ast.Call) and c.args
+                      and (getattr(c.func, "attr", None) == "increment_version"
+                           or getattr(c.func, "id", None) == "increment_version")}
+            for line, entry, name in writes:
+                sites += 1
+                where = f"{path.relative_to(REPO)}:{line} {fn.name}: {entry} writes {name}"
+                assert name is not None, where
+                if name in held:
+                    held_sites.append(where)
+                    assert ({name} | held[name]) & bumped, (
+                        where + f", which may be the caller's {sorted(held[name])}, "
+                        "with no increment_version")
+    assert sites >= 20  # the scan sees the kernels' call sites
+    assert any("df.py" in w and "r32" in w for w in held_sites), held_sites
+
+
 def test_dist_runs_and_meshes_take_no_device_on_their_own():
     """dist= is ported: it runs on a mesh of the caller's devices.
     make_mesh(n) alone takes n CUDA devices and raises when there are

@@ -197,35 +197,42 @@ def test_a_key_runs_eagerly_then_captures_once_and_a_failed_key_stays_eager(monk
 
 
 class _FakeGraph:
-    """Replays ``out = 2 * in`` into fixed outputs, as a graph does."""
+    """Replays a cycle, as a graph does: the new state ``2 * state`` written
+    into the state input, ``amax`` of the other input into a fixed output."""
 
     def __init__(self, inputs, outputs):
         self.inputs, self.outputs = inputs, outputs
         self.replays = 0
 
     def replay(self):
-        torch.mul(self.inputs[0], 2.0, out=self.outputs[0])
-        torch.amax(self.inputs[1], dim=-1, out=self.outputs[1])
+        torch.mul(self.inputs[0], 2.0, out=self.inputs[0])
+        torch.amax(self.inputs[1], dim=-1, out=self.outputs[0])
         self.replays += 1
 
 
 def test_a_replay_copies_in_clones_out_and_counts(monkeypatch):
     P.reset()
-    inputs = (torch.zeros(3, 4), torch.zeros(3, 4))
-    outputs = (torch.zeros(3, 4), torch.zeros(3))
-    fg = _FakeGraph(inputs, outputs)
+    inputs = graphs._Inputs((torch.zeros(3, 4), torch.zeros(3, 4)), "cpu")
+    outputs = (torch.zeros(3),)
+    fg = _FakeGraph(inputs.tensors, outputs)
     counts = ((zc.LAUNCHES + "zc_smooth_3d", 5), (zc.PASSES + "zc", 9))
     g = graphs._Graph(fg, inputs, outputs, counts)
     with P.call("solve_poisson_bvp"):
         kept = g.replay(torch.ones(3, 4), torch.arange(12.0).reshape(3, 4))
         later = g.replay(torch.full((3, 4), 5.0), torch.zeros(3, 4))
+        # the state a replay returned is what the state input holds: the
+        # next cycle on it copies nothing in
+        inputs.tensors[0].fill_(-1.0)
+        then = g.replay(later[0], torch.zeros(3, 4))
     assert torch.equal(kept[0], torch.full((3, 4), 2.0))  # not overwritten
     assert torch.equal(kept[1], torch.tensor([3.0, 7.0, 11.0]))
-    assert torch.equal(later[0], torch.full((3, 4), 10.0)) and fg.replays == 2
-    assert kept[0].data_ptr() != outputs[0].data_ptr()
+    assert torch.equal(later[0], torch.full((3, 4), 10.0)) and fg.replays == 3
+    assert torch.equal(then[0], torch.full((3, 4), -2.0))
+    assert kept[0].data_ptr() != inputs.tensors[0].data_ptr()
+    assert kept[1].data_ptr() != outputs[0].data_ptr()
     stats = P.calls()[-1]["stats"]
-    assert stats[P.GRAPH_REPLAYS][0] == 2 and P.counter(P.GRAPH_REPLAYS) == 2
-    assert stats[zc.LAUNCHES + "zc_smooth_3d"][0] == 10 and P.counter(zc.PASSES + "zc") == 18
+    assert stats[P.GRAPH_REPLAYS][0] == 3 and P.counter(P.GRAPH_REPLAYS) == 3
+    assert stats[zc.LAUNCHES + "zc_smooth_3d"][0] == 15 and P.counter(zc.PASSES + "zc") == 27
 
 
 def test_withheld_takes_the_moved_counters_back_out():
@@ -391,8 +398,9 @@ def test_cuda_graphs_and_their_memory_go_with_their_engine(card):
         assert ref() is None
     finally:
         gc.enable()
-    # at least the static inputs and outputs (three fine arrays) are freed
-    assert alive - torch.cuda.memory_allocated() >= 3 * u.numel() * u.element_size()
+    # at least the static inputs (two fine arrays; the new state lives in
+    # the first, the graph keeps no output array) are freed
+    assert alive - torch.cuda.memory_allocated() >= 2 * u.numel() * u.element_size()
 
 
 @pytest.mark.cuda
